@@ -1,0 +1,26 @@
+"""control_box_rst_tpu_torch — the PyTorch / CUDA port of control_box_rst_tpu.
+
+The package mirrors the JAX package's layout module by module
+(``ops/smallmat.py`` here is the counterpart of ``ops/smallmat.py`` there) and
+imports nothing of it: it depends on ``torch`` and ``numpy`` only.
+
+Conventions of the port:
+  - tensors are batch-first with the batch written out — every function takes
+    ``[..., …]`` operands and broadcasts over the leading dims; there is no
+    ``vmap`` on the hot path;
+  - per-lane loops are Python loops with a ``done`` mask that freezes
+    finished lanes;
+  - every entry point takes an explicit ``device``; ``None`` means ``cuda``
+    and raises when no card is present (``utils/precision.py``);
+  - float32 is the production type, float64 is for tests and oracles, and
+    TF32 is switched off.
+
+Ported so far: the config-1 batched MPC solve
+(``parallel.make_batched_solver`` → ``solvers.sqp_solve`` →
+``solvers.solve_stage_qp(backend='fused')`` → the hand-written CUDA kernels
+of ``ops/cuda/admm_kernel.py``).
+"""
+
+__version__ = "0.1.0"
+
+from control_box_rst_tpu_torch.utils import precision as _precision  # noqa: F401  (sets the TF32 policy)

@@ -1,0 +1,108 @@
+"""State carried across: build the port's objects from numpy arrays.
+
+The JAX package and the port share no code and no objects. What crosses
+between them — in the comparison tests, or when a problem set up elsewhere is
+handed to the port — is a dict of numpy arrays and static fields (the form
+``np.asarray`` extracts from the JAX objects). This module imports no JAX.
+
+``ocp_from_numpy(spec)`` keys (arrays are numpy, anything array-like works):
+
+  static:  N, nx, nu, system ("serial_integrators"), time_constant,
+           grid_kind, fd_scheme, cost_integration, dt_mode, cost_integral
+  cost:    Q [nx,nx], R [nu,nu], Qf [nx,nx] (Qf optional)
+  bounds:  x_lb, x_ub [nx], u_lb, u_ub [nu], dt_lb, dt_ub scalars
+  refs:    xref [N+1,nx], uref [N,nu]
+  bc:      x0 [..., nx], xf [nx] or None, xf_fixed [nx] or None
+  mask:    stage_mask [N]
+
+Every function here takes ``dtype`` (``None`` means float32) and ``device``
+(``None`` means the card, and raises when there is none; the CPU has to be
+asked for with ``device="cpu"``).
+"""
+from __future__ import annotations
+
+from typing import Any, Mapping, Optional
+
+import numpy as np
+import torch
+
+from control_box_rst_tpu_torch.models.benchmark import SerialIntegratorSystem
+from control_box_rst_tpu_torch.ocp.costs import (
+    CompositeCost,
+    QuadraticFinalStateCost,
+    QuadraticFormCost,
+)
+from control_box_rst_tpu_torch.ocp.grids import Grid
+from control_box_rst_tpu_torch.ocp.problem import (
+    BoundaryConditions,
+    Bounds,
+    References,
+    Trajectory,
+)
+from control_box_rst_tpu_torch.ocp.transcribe import TranscribedOCP
+from control_box_rst_tpu_torch.solvers.sqp import SQPWarmStart
+from control_box_rst_tpu_torch.solvers.stage_qp import QPWarmStart, StageQP
+from control_box_rst_tpu_torch.utils.precision import resolve_device, resolve_dtype
+
+
+def _tensor(a, dtype, device) -> Optional[torch.Tensor]:
+    if a is None:
+        return None
+    return torch.as_tensor(
+        np.array(a), device=resolve_device(device)).to(resolve_dtype(dtype))
+
+
+def ocp_from_numpy(spec: Mapping[str, Any], dtype=None,
+                   device=None) -> TranscribedOCP:
+    t = lambda key: _tensor(spec.get(key), dtype, device)
+    system_name = spec.get("system", "serial_integrators")
+    if system_name != "serial_integrators":
+        raise NotImplementedError(f"system {system_name!r} is not ported yet")
+    system = SerialIntegratorSystem(
+        nx=int(spec["nx"]), nu=int(spec["nu"]),
+        time_constant=float(spec.get("time_constant", 1.0)),
+    )
+    grid = Grid(
+        N=int(spec["N"]), kind=spec.get("grid_kind", "fd"),
+        fd_scheme=spec.get("fd_scheme", "crank_nicolson"),
+        cost_integration=spec.get("cost_integration", "left_sum"),
+        dt_mode=spec.get("dt_mode", "fixed"),
+    )
+    integral = bool(spec.get("cost_integral", False))
+    costs = [QuadraticFormCost(Q=t("Q"), R=t("R"), integral=integral)]
+    if spec.get("Qf") is not None:
+        costs.append(QuadraticFinalStateCost(Qf=t("Qf")))
+    cost = CompositeCost(costs=tuple(costs), integral=integral)
+    bounds = Bounds(
+        x_lb=t("x_lb"), x_ub=t("x_ub"), u_lb=t("u_lb"), u_ub=t("u_ub"),
+        dt_lb=t("dt_lb"), dt_ub=t("dt_ub"),
+    )
+    return TranscribedOCP(
+        grid=grid, system=system, cost=cost, bounds=bounds,
+        bc=BoundaryConditions(x0=t("x0"), xf=t("xf"), xf_fixed=t("xf_fixed")),
+        refs=References(xref=t("xref"), uref=t("uref")),
+        stage_mask=t("stage_mask"),
+    )
+
+
+def trajectory_from_numpy(d: Mapping[str, Any], dtype=None,
+                          device=None) -> Trajectory:
+    return Trajectory(**{k: _tensor(d[k], dtype, device) for k in ("X", "U", "dts")})
+
+
+def stage_qp_from_numpy(d: Mapping[str, Any], dtype=None,
+                        device=None) -> StageQP:
+    keys = ("Hd", "g", "J", "K", "c", "G", "gl", "gu", "dlb", "dub")
+    return StageQP(**{k: _tensor(d[k], dtype, device) for k in keys})
+
+
+def qp_warm_start_from_numpy(d: Mapping[str, Any], dtype=None,
+                             device=None) -> QPWarmStart:
+    keys = ("delta", "y_dyn", "y_gen", "y_box")
+    return QPWarmStart(*(_tensor(d[k], dtype, device) for k in keys))
+
+
+def sqp_warm_start_from_numpy(d: Mapping[str, Any], dtype=None,
+                              device=None) -> SQPWarmStart:
+    keys = ("W", "y_dyn", "y_gen", "y_box")
+    return SQPWarmStart(*(_tensor(d[k], dtype, device) for k in keys))

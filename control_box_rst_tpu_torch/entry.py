@@ -1,0 +1,72 @@
+"""Entry points of the port.
+
+Counterpart of the JAX package's ``__graft_entry__.py``:
+
+flagship(N)  → (ocp, cfg): the config-1 OCP — H=N double integrator,
+               quadratic cost, |u| ≤ 1, Crank–Nicolson finite differences,
+               dt pinned at 0.1 — with its solver settings.
+entry()      → (fn, example_args): the batched MPC solve on that config.
+"""
+from __future__ import annotations
+
+import torch
+
+from control_box_rst_tpu_torch.utils.precision import resolve_device, resolve_dtype
+
+
+def flagship(N: int = 50, dtype=None, device=None):
+    """Config-1 OCP: double integrator, quadratic cost, input bounds, H=N.
+    The OCP's tensors are created as ``dtype`` (float32 unless asked) on
+    ``device`` (``None`` means the card and raises when there is none)."""
+    from control_box_rst_tpu_torch.models import DoubleIntegratorContinuous
+    from control_box_rst_tpu_torch.ocp import (
+        Bounds,
+        CompositeCost,
+        QuadraticFinalStateCost,
+        QuadraticFormCost,
+        finite_differences_grid,
+        transcribe,
+    )
+    from control_box_rst_tpu_torch.solvers import QPConfig, SQPConfig
+
+    kw = dict(dtype=resolve_dtype(dtype), device=resolve_device(device))
+    sys_ = DoubleIntegratorContinuous()
+    grid = finite_differences_grid(N, fd_scheme="crank_nicolson")
+    cost = CompositeCost(
+        costs=(
+            QuadraticFormCost(Q=torch.eye(2, **kw), R=0.1 * torch.eye(1, **kw)),
+            QuadraticFinalStateCost(Qf=10.0 * torch.eye(2, **kw)),
+        )
+    )
+    bounds = Bounds.unbounded(2, 1, **kw).with_u(-1.0, 1.0).with_dt(0.1, 0.1)
+    ocp = transcribe(
+        sys_, grid, cost, bounds=bounds, x0=torch.zeros(2, **kw), **kw
+    )
+    # float32-calibrated tolerances: the fused one-shot LTI path
+    # (solvers/sqp.py) runs the whole solve in one kernel launch — recentered
+    # ρ-rounds of 12 ADMM iterations with an in-kernel exact-KKT early exit
+    # at (tol_stat, tol_feas)
+    cfg = SQPConfig(
+        max_iter=16,
+        qp=QPConfig(max_iter=12, iters_per_round=12, rho=1.0, tol=1e-5),
+        tol_stat=1e-4,
+        tol_feas=1e-5,
+    )
+    return ocp, cfg
+
+
+def entry(device=None):
+    """Batched H=50 SQP MPC solve. ``device=None`` means the card."""
+    from control_box_rst_tpu_torch.parallel import make_batched_solver
+
+    device = resolve_device(device)
+    ocp, cfg = flagship(device=device)
+    batched = make_batched_solver(ocp, cfg, dt_init=0.1, device=device)
+
+    def fn(x0s):
+        U, obj, status, iters = batched(x0s)
+        return U
+
+    x0s = torch.zeros((8, 2), dtype=torch.float32, device=device)
+    x0s[:, 0] = 1.0
+    return fn, (x0s,)

@@ -1,0 +1,52 @@
+"""Discretization grids.
+
+Counterpart of the JAX package's ``ocp/grids.py``: a grid is a static
+description of how the trajectory arrays parameterize the NLP. All variants
+share one canonical stage structure (see ``ocp/transcribe.py``):
+
+  stage variable  w_k = [x_k ; u_k ; dt_k]   (nz = nx+nu+1, always)
+  interval rows   c_k(w_k, w_{k+1}) = 0      (defect + tie rows)
+
+This slice carries the ``Grid`` description and the uniform fixed-dt
+finite-differences grid; the other constructors come with the slices that
+need them, and the transcription refuses the grid kinds it cannot yet
+evaluate.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+from control_box_rst_tpu_torch.utils.tree import plain_dataclass
+
+
+@plain_dataclass
+class Grid:
+    """Static grid description."""
+
+    N: int = 20
+    kind: str = "fd"  # "fd" | "ms"
+    fd_scheme: str = "crank_nicolson"
+    integrator: str = "rk4"
+    integrator_substeps: int = 1
+    cost_integration: str = "left_sum"  # | "trapezoidal"
+    dt_mode: str = "fixed"  # | "single" | "per_interval"
+    u_blocks: Optional[Tuple[int, ...]] = None
+
+    @property
+    def dt_is_variable(self) -> bool:
+        return self.dt_mode != "fixed"
+
+    @property
+    def has_dt_tie(self) -> bool:
+        return self.dt_mode == "single"
+
+    @property
+    def has_u_tie(self) -> bool:
+        return self.u_blocks is not None
+
+
+def finite_differences_grid(N: int, fd_scheme: str = "crank_nicolson",
+                            cost_integration: str = "left_sum") -> Grid:
+    """Uniform full-discretization grid, fixed dt."""
+    return Grid(N=N, kind="fd", fd_scheme=fd_scheme,
+                cost_integration=cost_integration, dt_mode="fixed")

@@ -1,0 +1,379 @@
+"""Transcription: grid + system + costs → canonical stage NLP.
+
+Counterpart of the JAX package's ``ocp/transcribe.py``.
+
+Canonical form ("stage NLP"): decision variables are W ∈ [N+1, nz] with
+w_k = [x_k ; u_k ; dt_k] (nz = nx+nu+1; unused components are pinned via
+``fixed_mask``). The NLP is
+
+  min  Σ_{k<N} stage_term_k(w_k, w_{k+1})  +  final(x_N)
+  s.t. c_k(w_k, w_{k+1}) = 0                      k < N   (defect rows)
+       r_k(w_k) ∈ [rl_k, ru_k]                    k ≤ N   (general rows)
+       lb_k ≤ w_k ≤ ub_k                                   (box; pins incl.)
+
+Batch-first: W may carry leading dims ([B, N+1, nz]); every per-stage
+function takes its stage data (w_k, w_{k+1}, references, mask) as operands
+that broadcast over leading dims, so one call evaluates all stages of all
+lanes as plain tensor ops. Derivatives stay exact: the interval Jacobians and
+the Hessian blocks come from ``torch.func.jacfwd`` / ``hessian`` vmapped over
+stages (for config 1 they are constant and the solver evaluates them once per
+batch), and the cost gradient of all lanes comes from one
+``torch.autograd.grad`` of the summed objective — lanes are independent, so
+the gradient of the sum is every lane's own gradient.
+
+Variable-horizon support: ``stage_mask[k] ∈ {0,1}`` deactivates tail
+intervals by replacing their defect with the identity chain x_{k+1} − x_k = 0
+and zeroing their cost, so only array values change, never shapes.
+
+Ported so far: fixed-dt finite-difference grids with left-sum / trapezoidal
+cost integration and no general rows (``ng = 0``). Grid kinds, tie rows and
+constraint objects that later slices bring are refused at construction.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from control_box_rst_tpu_torch.models.base import SystemDynamics
+from control_box_rst_tpu_torch.ocp.costs import StageCost
+from control_box_rst_tpu_torch.ocp.grids import Grid
+from control_box_rst_tpu_torch.ocp.problem import (
+    BoundaryConditions,
+    Bounds,
+    References,
+    Trajectory,
+)
+from control_box_rst_tpu_torch.ops.collocation import get_fd_collocation
+from control_box_rst_tpu_torch.utils.precision import resolve_device, resolve_dtype
+from control_box_rst_tpu_torch.utils.tree import plain_dataclass, tree_to
+
+_COST_INTEGRATIONS = ("left_sum", "trapezoidal")
+
+
+def _vmap_over_lead(fn, lead_ndim: int, n_batched: int, n_shared: int):
+    """vmap ``fn`` (already vmapped over stages) over ``lead_ndim`` leading
+    batch dims of its first ``n_batched`` arguments."""
+    in_dims = (0,) * n_batched + (None,) * n_shared
+    for _ in range(lead_ndim):
+        fn = torch.func.vmap(fn, in_dims=in_dims)
+    return fn
+
+
+@plain_dataclass
+class TranscribedOCP:
+    """A fully-specified stage NLP."""
+
+    grid: Grid = None
+    system: SystemDynamics = None
+    cost: StageCost = None
+    stage_con: Optional[object] = None
+    term_con: Optional[object] = None
+    bounds: Bounds = None
+    bc: BoundaryConditions = None
+    refs: References = None
+    stage_mask: torch.Tensor = None  # [N] 1.0 = interval active
+
+    def __post_init__(self):
+        g = self.grid
+        if g.kind != "fd":
+            raise NotImplementedError(
+                f"grid kind {g.kind!r} is not ported yet (multiple shooting "
+                "comes with the nonlinear-configs slice)"
+            )
+        if self.system.continuous_time:
+            get_fd_collocation(g.fd_scheme)  # raises for unported schemes
+        if g.dt_is_variable:
+            raise NotImplementedError(
+                f"dt_mode {g.dt_mode!r} is not ported yet (time-optimal grids "
+                "come with the nonlinear-configs slice)"
+            )
+        if g.has_u_tie:
+            raise NotImplementedError(
+                "move blocking is not ported yet (other-grids slice)"
+            )
+        if self.stage_con is not None or self.term_con is not None:
+            raise NotImplementedError(
+                "stage/terminal constraint rows (ng > 0) are not ported yet "
+                "(other-solvers slice)"
+            )
+        if self.cost.integral and g.cost_integration not in _COST_INTEGRATIONS:
+            raise NotImplementedError(
+                f"cost integration {g.cost_integration!r} is not ported yet; "
+                f"have {_COST_INTEGRATIONS}"
+            )
+
+    # ---------------- dimensions ----------------
+    @property
+    def N(self) -> int:
+        return self.grid.N
+
+    @property
+    def nx(self) -> int:
+        return self.system.nx
+
+    @property
+    def nu(self) -> int:
+        return self.system.nu
+
+    @property
+    def nz(self) -> int:
+        return self.nx + self.nu + 1
+
+    @property
+    def nc(self) -> int:
+        """Interval equality rows: the defect (tie rows are not ported)."""
+        return self.nx
+
+    @property
+    def ng(self) -> int:
+        return 0
+
+    # ---------------- packing ----------------
+    def pack(self, traj: Trajectory) -> torch.Tensor:
+        """Trajectory → W [..., N+1, nz]. Stage N gets dummy u/dt (zeros).
+        X, U and dts may carry different leading dims; they broadcast."""
+        X, U, dts = traj.X, traj.U, traj.dts
+        lead = torch.broadcast_shapes(X.shape[:-2], U.shape[:-2], dts.shape[:-1])
+        X = X.expand(lead + X.shape[-2:])
+        U = U.expand(lead + U.shape[-2:])
+        dts = dts.expand(lead + dts.shape[-1:])
+        U_pad = torch.cat([U, U.new_zeros(lead + (1, self.nu))], dim=-2)
+        dt_pad = torch.cat([dts, dts.new_zeros(lead + (1,))], dim=-1)
+        return torch.cat([X, U_pad, dt_pad[..., None]], dim=-1)
+
+    def unpack(self, W: torch.Tensor) -> Trajectory:
+        nx, nu = self.nx, self.nu
+        return Trajectory(
+            X=W[..., :, :nx], U=W[..., :-1, nx:nx + nu], dts=W[..., :-1, nx + nu]
+        )
+
+    @staticmethod
+    def split_w(w: torch.Tensor, nx: int, nu: int):
+        return w[..., :nx], w[..., nx:nx + nu], w[..., nx + nu]
+
+    # ---------------- defect ----------------
+    def _defect_fn(self):
+        """Returns defect(x, u, x1, dt) for the grid's scheme."""
+        f = self.system
+        if not f.continuous_time:
+            # discrete-time system: x⁺ = f(x, u); one-step defect
+            return lambda x, u, x1, dt: f(x, u) - x1
+        scheme = get_fd_collocation(self.grid.fd_scheme)
+        return lambda x, u, x1, dt: scheme(f, x, u, x1, dt)
+
+    def interval_residual(self, w, w1, m):
+        """c_k(w_k, w_{k+1}) ∈ R^nc: masked defect. ``w``, ``w1`` [..., nz]
+        are the two stages of an interval, ``m`` [...] its stage-mask entry."""
+        nx, nu = self.nx, self.nu
+        x, u, dt = self.split_w(w, nx, nu)
+        x1 = w1[..., :nx]
+        # guard: inactive intervals may carry dt = 0, and FD defects divide
+        # by dt — evaluate them at a safe dt (the result is masked out)
+        dt_safe = torch.where(m > 0, dt, torch.ones_like(dt))
+        defect = self._defect_fn()(x, u, x1, dt_safe)
+        # inactive interval → identity chain (keeps the tail pinned)
+        mm = m[..., None]
+        return mm * defect + (1.0 - mm) * (x1 - x)
+
+    def interval_residuals(self, W: torch.Tensor) -> torch.Tensor:
+        """[..., N, nc] all interval equality rows."""
+        return self.interval_residual(
+            W[..., :-1, :], W[..., 1:, :], self.stage_mask
+        )
+
+    def defects(self, traj: Trajectory) -> torch.Tensor:
+        """[..., N, nx] dynamics defects only (diagnostics / tests)."""
+        return self.interval_residuals(self.pack(traj))[..., : self.nx]
+
+    def interval_jacobians(self, W: torch.Tensor):
+        """J [..., N, nc, nz], K [..., N, nc, nz], c [..., N, nc] — exact,
+        forward-mode AD per interval vmapped over stages (and lanes)."""
+        jac = torch.func.jacfwd(self.interval_residual, argnums=(0, 1))
+        fn = torch.func.vmap(jac)  # over stages
+        fn = _vmap_over_lead(fn, W.dim() - 2, 2, 1)
+        J, K = fn(W[..., :-1, :], W[..., 1:, :], self.stage_mask)
+        return J, K, self.interval_residuals(W)
+
+    # ---------------- cost ----------------
+    def _stage_term(self, w, w1, xref, xref1, uref, m):
+        """Cost contribution of one interval (uses w_k and, for trapezoidal
+        integration, x_{k+1}); all operands broadcast over leading dims."""
+        nx, nu = self.nx, self.nu
+        x, u, dt = self.split_w(w, nx, nu)
+        c = self.cost
+        if c.integral:
+            if self.grid.cost_integration == "trapezoidal":
+                x1 = w1[..., :nx]
+                val = 0.5 * dt * (
+                    c.stage(x, u, dt, xref, uref)
+                    + c.stage(x1, u, dt, xref1, uref)
+                )
+            else:  # left_sum (anything else was refused at construction)
+                val = dt * c.stage(x, u, dt, xref, uref)
+        else:
+            val = c.stage(x, u, dt, xref, uref)
+        return m * val
+
+    def objective_from_W(self, W: torch.Tensor) -> torch.Tensor:
+        xref, uref = self.refs.xref, self.refs.uref
+        stage_sum = self._stage_term(
+            W[..., :-1, :], W[..., 1:, :], xref[:-1], xref[1:], uref,
+            self.stage_mask,
+        ).sum(dim=-1)
+        final = self.cost.final(W[..., -1, : self.nx], xref[-1])
+        return stage_sum + final
+
+    def objective(self, traj: Trajectory) -> torch.Tensor:
+        return self.objective_from_W(self.pack(traj))
+
+    def cost_gradient(self, W: torch.Tensor) -> torch.Tensor:
+        """Exact gradient [..., N+1, nz] of every lane's objective."""
+        with torch.enable_grad():
+            Wg = W.detach().requires_grad_(True)
+            total = self.objective_from_W(Wg).sum()
+            (grad,) = torch.autograd.grad(total, Wg, allow_unused=True)
+        return torch.zeros_like(W) if grad is None else grad
+
+    def cost_hessian_blocks(self, W: torch.Tensor) -> torch.Tensor:
+        """Block-diagonal Hessian approximation Hd [..., N+1, nz, nz].
+
+        Exact per-stage Hessian of φ_k(v) = all objective terms touching
+        stage k, with neighboring stages frozen. Cross-stage cost coupling
+        (trapezoidal integration) is dropped from the Hessian — but NOT from
+        the gradient — which preserves exact KKT solutions."""
+        N, nx = self.N, self.nx
+        dev, dtype = W.device, W.dtype
+        xref, uref, mask = self.refs.xref, self.refs.uref, self.stage_mask
+        ks = torch.arange(N + 1, device=dev)
+        kl = ks.clamp(max=N - 1)  # interval k as left stage
+        kr = (ks - 1).clamp(min=0)  # interval k-1 as right stage
+        left = (ks < N).to(dtype)
+        right = (ks > 0).to(dtype)
+        is_term = (ks == N).to(dtype)
+        couples = self.cost.integral and self.grid.cost_integration == "trapezoidal"
+        xref_N = xref[-1]
+
+        def phi(v, wp, wn, lf, rt, tm, xl, xl1, ul, ml, xr, xr1, ur, mr):
+            total = lf * self._stage_term(v, wn, xl, xl1, ul, ml)
+            if couples:
+                total = total + rt * self._stage_term(wp, v, xr, xr1, ur, mr)
+            return total + tm * self.cost.final(v[..., :nx], xref_N)
+
+        pad = torch.zeros_like(W[..., :1, :])
+        W_prev = torch.cat([pad, W[..., :-1, :]], dim=-2)
+        W_next = torch.cat([W[..., 1:, :], pad], dim=-2)
+        fn = torch.func.vmap(torch.func.hessian(phi, argnums=0))  # over stages
+        fn = _vmap_over_lead(fn, W.dim() - 2, 3, 11)
+        return fn(
+            W, W_prev, W_next, left, right, is_term,
+            xref[kl], xref[kl + 1], uref[kl], mask[kl],
+            xref[kr], xref[kr + 1], uref[kr], mask[kr],
+        )
+
+    # ---------------- general rows ----------------
+    def general_rows(self, W: torch.Tensor):
+        """Values r [..., N+1, ng] with bounds rl, ru — empty for ng = 0."""
+        z = W.new_zeros(W.shape[:-1] + (0,))
+        return z, z, z
+
+    def general_row_jacobians(self, W: torch.Tensor) -> torch.Tensor:
+        """G [..., N+1, ng, nz] — empty for ng = 0."""
+        return W.new_zeros(W.shape[:-1] + (0, self.nz))
+
+    # ---------------- structural invariants ----------------
+    @property
+    def lti_structure(self) -> bool:
+        """True when the interval Jacobians J, K are constant in W: linear
+        dynamics and dt pinned. Solvers hoist the linearization then."""
+        return (
+            bool(getattr(self.system, "is_linear", False))
+            and not self.grid.dt_is_variable
+        )
+
+    @property
+    def constant_hessian(self) -> bool:
+        """True when the cost Hessian blocks are constant in W."""
+        return self.lti_structure and bool(getattr(self.cost, "quadratic", False))
+
+    # ---------------- bounds & pins ----------------
+    def w_bounds(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Absolute box bounds lb, ub [N+1, nz] (before pinning)."""
+        b = self.bounds
+        lb_row = torch.cat([b.x_lb, b.u_lb, b.dt_lb[None]])
+        ub_row = torch.cat([b.x_ub, b.u_ub, b.dt_ub[None]])
+        shape = (self.N + 1, self.nz)
+        return lb_row.expand(shape), ub_row.expand(shape)
+
+    def fixed_mask(self) -> torch.Tensor:
+        """[N+1, nz] 1.0 where the variable is pinned to its current value:
+        x_0, xf_fixed components of x_N, stage-N dummy u/dt, and all dt
+        columns when the grid's dt is not a decision variable."""
+        N, nx, nu, nz = self.N, self.nx, self.nu, self.nz
+        ref = self.stage_mask
+        m = torch.zeros((N + 1, nz), dtype=ref.dtype, device=ref.device)
+        m[0, :nx] = 1.0
+        m[N, nx:] = 1.0
+        if self.bc.xf_fixed is not None:
+            m[N, :nx] = self.bc.xf_fixed.to(m.dtype)
+        if not self.grid.dt_is_variable:
+            m[:, nx + nu] = 1.0
+        return m
+
+    def apply_boundary(self, traj: Trajectory) -> Trajectory:
+        """Overwrite x_0 ← bc.x0 and pinned terminal components ← bc.xf.
+        A batched bc.x0 [..., nx] batches X."""
+        x0 = self.bc.x0.to(traj.X.dtype)
+        lead = torch.broadcast_shapes(traj.X.shape[:-2], x0.shape[:-1])
+        X = traj.X.expand(lead + traj.X.shape[-2:]).clone()
+        X[..., 0, :] = x0
+        if self.bc.xf_fixed is not None and self.bc.xf is not None:
+            mask = self.bc.xf_fixed.to(X.dtype)
+            X[..., -1, :] = mask * self.bc.xf + (1.0 - mask) * X[..., -1, :]
+        return traj.replace(X=X)
+
+    def to(self, device=None, dtype=None) -> "TranscribedOCP":
+        """Copy with every tensor on ``device`` (floating ones as ``dtype``)."""
+        return tree_to(self, device, dtype)
+
+
+def transcribe(
+    system: SystemDynamics,
+    grid: Grid,
+    cost: StageCost,
+    bounds: Optional[Bounds] = None,
+    x0: Optional[torch.Tensor] = None,
+    xf: Optional[torch.Tensor] = None,
+    xf_fixed: Optional[torch.Tensor] = None,
+    refs: Optional[References] = None,
+    stage_con=None,
+    term_con=None,
+    stage_mask: Optional[torch.Tensor] = None,
+    dtype=None,
+    device=None,
+) -> TranscribedOCP:
+    """Convenience constructor with sensible defaults. Every tensor of the
+    result is cast to ``dtype`` (``None`` means float32) and moved to
+    ``device`` (``None`` means the card, and raises when there is none)."""
+    dtype, device = resolve_dtype(dtype), resolve_device(device)
+    nx, nu, N = system.nx, system.nu, grid.N
+    if bounds is None:
+        bounds = Bounds.unbounded(nx, nu, dtype, device)
+    if x0 is None:
+        x0 = torch.zeros((nx,))
+    if refs is None:
+        xr = xf if xf is not None else torch.zeros((nx,))
+        refs = References.constant(torch.as_tensor(xr), torch.zeros((nu,)), N)
+    if stage_mask is None:
+        stage_mask = torch.ones((N,))
+    bc = BoundaryConditions(
+        x0=torch.as_tensor(x0),
+        xf=None if xf is None else torch.as_tensor(xf),
+        xf_fixed=None if xf_fixed is None else torch.as_tensor(xf_fixed),
+    )
+    ocp = TranscribedOCP(
+        grid=grid, system=system, cost=cost, stage_con=stage_con,
+        term_con=term_con, bounds=bounds, bc=bc, refs=refs,
+        stage_mask=torch.as_tensor(stage_mask),
+    )
+    return ocp.to(device=device, dtype=dtype)

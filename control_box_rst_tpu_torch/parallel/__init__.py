@@ -1,0 +1,3 @@
+from control_box_rst_tpu_torch.parallel.sharded_solve import make_batched_solver
+
+__all__ = ["make_batched_solver"]

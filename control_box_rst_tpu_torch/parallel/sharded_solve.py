@@ -1,0 +1,64 @@
+"""Batched MPC solves.
+
+Counterpart of the JAX package's ``parallel/sharded_solve.py`` — single
+device only so far (a ``mesh`` comes with the multi-device slice). Each MPC
+solve is independent, so the batch is simply the leading dim of every tensor
+the solver touches.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from control_box_rst_tpu_torch.ocp.problem import Trajectory
+from control_box_rst_tpu_torch.ocp.transcribe import TranscribedOCP
+from control_box_rst_tpu_torch.solvers.sqp import SQPConfig, hoist_structure, sqp_solve
+from control_box_rst_tpu_torch.utils.precision import resolve_device, resolve_dtype
+
+
+def make_batched_solver(
+    ocp: TranscribedOCP,
+    cfg: Optional[SQPConfig] = None,
+    dt_init: float = 0.1,
+    mesh=None,
+    device=None,
+    dtype=None,
+):
+    """Returns fn x0s [B, nx] → (U [B, N, nu], objective, status, iterations).
+
+    ``device=None`` means the card and raises when there is none; the CPU has
+    to be asked for (``device="cpu"``). ``dtype=None`` means float32. The OCP
+    is moved to that device/dtype once, here; x0s may be a tensor or a numpy
+    array.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "sharding over a device mesh is not ported yet (multi-device slice)"
+        )
+    device = resolve_device(device)
+    dtype = resolve_dtype(dtype)
+    cfg = cfg or SQPConfig()
+    # fused QP solve: float32 box-only QP on the card — the kernel's envelope
+    if (cfg.qp.backend is None and ocp.ng == 0 and device.type == "cuda"
+            and dtype == torch.float32):
+        cfg = cfg.replace(qp=cfg.qp.replace(backend="fused"))
+    ocp = ocp.to(device=device, dtype=dtype)
+    N, nu = ocp.N, ocp.nu
+    xf = ocp.bc.xf if ocp.bc.xf is not None else ocp.refs.xref[-1]
+    # every call starts from the same U and dts, so the constant structure of
+    # an LTI problem (J, K, Hd) is evaluated once, here, not once per call
+    hoisted = hoist_structure(
+        ocp, Trajectory.linear_interp(ocp.bc.x0, xf, N, nu, dt_init), cfg
+    )
+
+    def solve(x0s):
+        x0s = torch.as_tensor(x0s).to(device=device, dtype=dtype)
+        o = ocp.replace(bc=ocp.bc.replace(x0=x0s))
+        # X is per lane; U and dts are shared and stay unbatched, which lets
+        # sqp_solve evaluate the LTI linearization once per batch
+        traj0 = Trajectory.linear_interp(x0s, xf, N, nu, dt_init)
+        res = sqp_solve(o, traj0, cfg, hoisted=hoisted)
+        return res.traj.U, res.objective, res.status, res.iterations
+
+    return solve

@@ -1,0 +1,380 @@
+"""SQP solver for stage NLPs, batch-first.
+
+Counterpart of the JAX package's ``solvers/sqp.py``. Structure:
+
+  linearize (exact AD, all stages and lanes at once)
+    → stage QP (block-tridiagonal ADMM, warm-started)
+    → ℓ1-merit backtracking line search (all candidate steps evaluated
+      in parallel)
+    → KKT residual check, per-lane convergence mask
+
+Every lane of a batch ([B, N+1, nz]) is an independent MPC solve with its
+own convergence state. The reference's vmapped ``while_loop`` becomes a
+Python loop with a per-lane ``done`` mask: a finished lane is frozen — extra
+iterations do not move it — and the loop ends when every lane is done or the
+iteration budget is spent.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+from control_box_rst_tpu_torch.core.types import SolverStatus
+from control_box_rst_tpu_torch.ocp.problem import Trajectory
+from control_box_rst_tpu_torch.ocp.transcribe import TranscribedOCP
+from control_box_rst_tpu_torch.ops.btridiag import interval_to_stage
+from control_box_rst_tpu_torch.solvers.stage_qp import (
+    QPConfig,
+    QPWarmStart,
+    StageQP,
+    solve_stage_qp,
+)
+from control_box_rst_tpu_torch.utils.precision import check_precision_policy
+from control_box_rst_tpu_torch.utils.tree import plain_dataclass
+
+
+@plain_dataclass
+class SQPConfig:
+    max_iter: int = 30
+    qp: QPConfig = None
+    # None → dtype-calibrated at solve time: f64 → (1e-6, 1e-7);
+    # f32 (the production path) → (5e-4, 2e-5)
+    tol_stat: Optional[float] = None
+    tol_feas: Optional[float] = None
+    ls_candidates: int = 8
+    ls_c1: float = 1e-4
+    merit_nu_init: float = 10.0
+    psd_clamp: bool = False
+    # proximal damping λ‖δ‖² added to the QP Hessian diagonal
+    prox: float = 0.0
+    # watchdog arming threshold: the full-step rescue only fires when the
+    # CURRENT iterate's ℓ1 infeasibility is already below this
+    rescue_infeas_max: float = 1e-3
+
+    def __post_init__(self):
+        if self.qp is None:
+            object.__setattr__(self, "qp", QPConfig())
+
+
+class SQPResult(NamedTuple):
+    traj: Trajectory
+    W: torch.Tensor
+    y_dyn: torch.Tensor
+    y_gen: torch.Tensor
+    y_box: torch.Tensor
+    iterations: torch.Tensor
+    objective: torch.Tensor
+    stat_res: torch.Tensor
+    feas_res: torch.Tensor
+    status: torch.Tensor  # SolverStatus int32
+    qp_iters: torch.Tensor
+
+
+class SQPWarmStart(NamedTuple):
+    W: torch.Tensor
+    y_dyn: torch.Tensor
+    y_gen: torch.Tensor
+    y_box: torch.Tensor
+
+
+class SQPHoisted(NamedTuple):
+    """Pin-masked constant structure of an LTI problem (``hoist_structure``):
+    ``Jm``, ``Km`` [..., N, nc, nz] when the interval Jacobians are constant
+    in W, ``Hm`` [..., N+1, nz, nz] when the cost Hessian is too; else None."""
+    Jm: Optional[torch.Tensor]
+    Km: Optional[torch.Tensor]
+    Hm: Optional[torch.Tensor]
+
+
+def _amax2(a: torch.Tensor) -> torch.Tensor:
+    """Per-lane max over the trailing [stage, entry] dims."""
+    return a.amax(dim=(-2, -1))
+
+
+def _merit(ocp: TranscribedOCP, W, lb, ub, nu, free):
+    """ℓ1 merit φ = f + ν·infeas per lane. Box violations are counted on FREE
+    entries only: pinned entries (x0 row, fixed-xf components, stage-N dummy
+    u/dt, fixed-dt columns) are equalities maintained by construction, and
+    the dummy slots sit OUTSIDE the broadcast bounds (the stage-N dt dummy is
+    0 vs dt bounds [0.1, 0.1]) — counting them would add a constant,
+    irreducible infeasibility that no step can reduce."""
+    f = ocp.objective_from_W(W)
+    c = ocp.interval_residuals(W)
+    r, rl, ru = ocp.general_rows(W)
+    viol_gen = torch.clamp(rl - r, min=0.0) + torch.clamp(r - ru, min=0.0)
+    viol_box = (torch.clamp(lb - W, min=0.0) + torch.clamp(W - ub, min=0.0)) * free
+    infeas = (
+        c.abs().sum(dim=(-2, -1)) + viol_gen.sum(dim=(-2, -1))
+        + viol_box.sum(dim=(-2, -1))
+    )
+    return f + nu * infeas, infeas
+
+
+def _grad_lagrangian(gm, Jm, Km, y_dyn, y_box, free):
+    gl = gm + interval_to_stage(
+        torch.einsum("...kri,...kr->...ki", Jm, y_dyn),
+        torch.einsum("...kri,...kr->...ki", Km, y_dyn),
+    )
+    return gl + y_box * free
+
+
+def _mask_hessian(Hd, free, prox: float):
+    if prox:
+        Hd = Hd + prox * torch.eye(Hd.shape[-1], dtype=Hd.dtype, device=Hd.device)
+    return Hd * free[:, None, :] * free[:, :, None]
+
+
+def hoist_structure(
+    ocp: TranscribedOCP, traj0: Trajectory, cfg: Optional[SQPConfig] = None
+) -> SQPHoisted:
+    """Evaluate what is constant over the SQP iterations, once.
+
+    LTI ⇒ J, K are the same at every W; they are evaluated at a state-zeroed
+    reference trajectory (keeping u/dt from traj0 — J/K depend on dt). In the
+    batched solver x0 enters only through traj0.X while U and dts are shared
+    by all lanes and carry no batch dim, so the reference point is UNBATCHED
+    and the whole linearization (and the constant Hessian) is evaluated once
+    per batch, not once per lane; with batched U/dts it degrades gracefully
+    to the per-lane evaluation. The result depends on the OCP, on traj0's U
+    and dts and on ``cfg.prox`` only, so a caller that solves many batches
+    from the same initial guess (``make_batched_solver``) computes it once
+    and passes it to ``sqp_solve`` — what tracing under ``jit`` does for the
+    reference."""
+    cfg = cfg or SQPConfig()
+    if not ocp.lti_structure:
+        return SQPHoisted(None, None, None)
+    N, nz = ocp.N, ocp.nz
+    dtype, dev = traj0.X.dtype, traj0.X.device
+    free = 1.0 - ocp.fixed_mask().to(dtype)
+    lead_ref = torch.broadcast_shapes(traj0.U.shape[:-2], traj0.dts.shape[:-1])
+    traj_ref = traj0.replace(
+        X=torch.zeros(lead_ref + (N + 1, ocp.nx), dtype=dtype, device=dev)
+    )
+    W_jac = ocp.pack(traj_ref)
+    J_c, K_c, _ = ocp.interval_jacobians(W_jac)
+    Hm = None
+    if ocp.constant_hessian:
+        Hm = _mask_hessian(ocp.cost_hessian_blocks(W_jac), free, cfg.prox)
+    return SQPHoisted(
+        Jm=J_c * free[:-1, None, :], Km=K_c * free[1:, None, :], Hm=Hm
+    )
+
+
+def sqp_solve(
+    ocp: TranscribedOCP,
+    traj0: Trajectory,
+    cfg: Optional[SQPConfig] = None,
+    warm: Optional[SQPWarmStart] = None,
+    hoisted: Optional[SQPHoisted] = None,
+) -> SQPResult:
+    """Solve the transcribed OCP starting from traj0, for every lane of the
+    leading dims of ``ocp.bc.x0`` / ``traj0``. Runs on the device and in the
+    dtype of its inputs. ``hoisted`` takes a precomputed ``hoist_structure``
+    result for this OCP and this traj0's U and dts."""
+    check_precision_policy()
+    if cfg is None:
+        cfg = SQPConfig()
+    N, nz, nc, ng = ocp.N, ocp.nz, ocp.nc, ocp.ng
+    if cfg.psd_clamp or not getattr(ocp.cost, "convex", True):
+        raise NotImplementedError(
+            "the PSD clamp of indefinite Hessian blocks is not ported yet "
+            "(nonlinear-configs slice)"
+        )
+
+    traj0 = ocp.apply_boundary(traj0)
+    W0 = ocp.pack(traj0)
+    dtype, dev = W0.dtype, W0.device
+    lead = tuple(W0.shape[:-2])
+
+    tol_stat = cfg.tol_stat if cfg.tol_stat is not None else (
+        1e-6 if dtype == torch.float64 else 5e-4)
+    tol_feas = cfg.tol_feas if cfg.tol_feas is not None else (
+        1e-7 if dtype == torch.float64 else 2e-5)
+
+    pin = ocp.fixed_mask().to(dtype)
+    free = 1.0 - pin
+    lb, ub = ocp.w_bounds()
+    # clamp ±inf to a large finite value (OSQP's OSQP_INFTY trick): keeps
+    # every arithmetic path finite, inf−inf / 0·inf NaNs are ruled out
+    BIG = 1e8
+    lb = torch.clamp(lb.to(dtype), min=-BIG)
+    ub = torch.clamp(ub.to(dtype), max=BIG)
+
+    kw = dict(dtype=dtype, device=dev)
+    if warm is None:
+        y_dyn0 = torch.zeros(lead + (N, nc), **kw)
+        y_gen0 = torch.zeros(lead + (N + 1, ng), **kw)
+        y_box0 = torch.zeros(lead + (N + 1, nz), **kw)
+    else:
+        W0 = warm.W
+        y_dyn0, y_gen0, y_box0 = warm.y_dyn, warm.y_gen, warm.y_box
+
+    alphas = 0.5 ** torch.arange(cfg.ls_candidates, **kw)
+
+    # ---- hoist constant structure out of the iteration loop ----
+    # LTI + fixed dt: J, K are constant in W; quadratic cost: Hd constant.
+    hoist_JK = ocp.lti_structure
+    hoist_H = ocp.constant_hessian
+    if hoisted is None:
+        hoisted = hoist_structure(ocp, traj0, cfg)
+    Jm_c, Km_c, Hm_c = hoisted
+
+    def _mask_H(Hd):
+        return _mask_hessian(Hd, free, cfg.prox)
+
+    # ---- one-shot LTI fast path (single fused kernel launch) ----
+    # LTI dynamics + constant quadratic Hessian + box-only constraints make
+    # the NLP itself a convex QP: the first linearization is exact and the QP
+    # minimizer IS the NLP minimizer. The fused kernel runs the ENTIRE solve
+    # — every ρ-adaptation round, with per-lane early exit — in one launch.
+    #
+    # Budget: the one-shot gets the TOTAL ADMM work the outer SQP loop would
+    # spend (max_iter SQP iterations × the per-QP budget); early exit makes
+    # the larger cap cheap for easy lanes.
+    #
+    # Correctness contract: the one-shot result is checked against the EXACT
+    # NLP KKT residuals, and lanes that miss tolerance fall through into the
+    # standard outer SQP loop below (their `done` flag starts False) — the
+    # one-shot can only accelerate, never degrade.
+    one_shot = hoist_JK and hoist_H and ng == 0 and cfg.qp.backend == "fused"
+    it0 = torch.zeros(lead, dtype=torch.int32, device=dev)
+    qp_iters0 = torch.zeros(lead, dtype=torch.int32, device=dev)
+    done0 = torch.zeros(lead, dtype=torch.bool, device=dev)
+    stat0 = torch.full(lead, math.inf, **kw)
+    feas0 = torch.full(lead, math.inf, **kw)
+    empty_G = torch.zeros((N + 1, 0, nz), **kw)
+    empty_g = torch.zeros((N + 1, 0), **kw)
+    if one_shot:
+        per_qp_budget = cfg.qp.max_iter if cfg.qp.max_iter is not None else 200
+        qp_cfg_os = cfg.qp.replace(
+            max_iter=cfg.max_iter * per_qp_budget,
+            # in-kernel early exit on the SOLVER-level KKT criterion
+            kkt_tols=(float(tol_stat), float(tol_feas)),
+        )
+        c0 = ocp.interval_residuals(W0)
+        gm = ocp.cost_gradient(W0) * free
+        zero_w = torch.zeros_like(W0)
+        qp = StageQP(
+            Hd=Hm_c, g=gm, J=Jm_c, K=Km_c, c=c0,
+            G=empty_G, gl=empty_g, gu=empty_g,
+            dlb=torch.where(free > 0, lb - W0, zero_w),
+            dub=torch.where(free > 0, ub - W0, zero_w),
+        )
+        sol = solve_stage_qp(
+            qp, qp_cfg_os,
+            warm=QPWarmStart(
+                delta=zero_w, y_dyn=y_dyn0, y_gen=y_gen0, y_box=y_box0,
+            ),
+        )
+        W_os = W0 + sol.delta * free
+        # exact KKT residuals of the NLP at the solution
+        gm1 = ocp.cost_gradient(W_os) * free
+        grad_lag = _grad_lagrangian(gm1, Jm_c, Km_c, sol.y_dyn, sol.y_box, free)
+        stat0 = _amax2((grad_lag * free).abs())
+        feas0 = _amax2(ocp.interval_residuals(W_os).abs())
+        done0 = (stat0 < tol_stat) & (feas0 < tol_feas)
+        # accept the one-shot iterate as the outer loop's starting point
+        # either way: for converged lanes it is final (frozen by `done`);
+        # for the rest it is a warm start strictly better than traj0.
+        W0 = W_os
+        y_dyn0, y_box0 = sol.y_dyn, sol.y_box
+        it0 = torch.ones(lead, dtype=torch.int32, device=dev)
+        qp_iters0 = sol.iters
+
+    W, y_dyn, y_gen, y_box = W0, y_dyn0, y_gen0, y_box0
+    nu = torch.full(lead, cfg.merit_nu_init, **kw)
+    it, stat, feas, done, qp_tot = it0, stat0, feas0, done0, qp_iters0
+
+    while bool(((it < cfg.max_iter) & ~done).any()):
+        # ---- linearize (exact AD, all stages and lanes at once) ----
+        if hoist_JK:
+            Jm, Km = Jm_c, Km_c
+            c = ocp.interval_residuals(W)
+        else:
+            J, K, c = ocp.interval_jacobians(W)
+            Jm = J * free[:-1, None, :]
+            Km = K * free[1:, None, :]
+        grad = ocp.cost_gradient(W)
+        Hm = Hm_c if hoist_H else _mask_H(ocp.cost_hessian_blocks(W))
+
+        # ---- pin masking: zero columns of fixed variables ----
+        gm = grad * free
+        zero_w = torch.zeros_like(W)
+        qp = StageQP(
+            Hd=Hm, g=gm, J=Jm, K=Km, c=c, G=empty_G, gl=empty_g, gu=empty_g,
+            dlb=torch.where(free > 0, lb - W, zero_w),
+            dub=torch.where(free > 0, ub - W, zero_w),
+        )
+        sol = solve_stage_qp(
+            qp, cfg.qp,
+            warm=QPWarmStart(delta=zero_w, y_dyn=y_dyn, y_gen=y_gen, y_box=y_box),
+        )
+        delta = sol.delta * free
+
+        # ---- ℓ1 merit line search (parallel candidates) ----
+        y_max = _amax2(sol.y_dyn.abs())
+        # ν tracks the current dual scale both ways: it must dominate the
+        # duals for the ℓ1 merit to be exact, but a ν stuck at the scale of
+        # the FIRST iterations' duals over-penalizes residual infeasibility
+        # near the solution; geometric decay forgets stale magnitudes.
+        nu_new = torch.maximum(1.2 * y_max + 1e-3, 0.5 * nu)
+        phi0, infeas0 = _merit(ocp, W, lb, ub, nu_new, free)
+        dirderiv = (grad * delta).sum(dim=(-2, -1)) - nu_new * infeas0
+
+        # candidates in a new leading dim: [n_cand, *lead, N+1, nz]
+        a_w = alphas.reshape((-1,) + (1,) * (len(lead) + 2))
+        a_l = alphas.reshape((-1,) + (1,) * len(lead))
+        phis, infeas_c = _merit(ocp, W + a_w * delta, lb, ub, nu_new, free)
+        ok = phis <= phi0 + cfg.ls_c1 * a_l * torch.clamp(dirderiv, max=0.0)
+        any_ok = ok.any(dim=0)
+        idx = ok.to(torch.int8).argmax(dim=0)  # first True = largest α
+        # Maratos watchdog: accept the FULL step whenever the merit test
+        # fails across the board yet the trial point stays essentially
+        # feasible, i.e. the rejection is second-order noise, not a real
+        # feasibility loss.
+        rescue = (
+            (~any_ok)
+            & (infeas0 <= cfg.rescue_infeas_max)
+            & (infeas_c[0] <= torch.clamp(10.0 * infeas0, min=tol_feas))
+        )
+        alpha = torch.where(
+            any_ok, alphas[idx], torch.where(rescue, alphas[0], alphas[-1])
+        )
+        step = alpha[..., None, None] * delta
+        W_new = W + step
+
+        # ---- KKT residuals (at current linearization, QP multipliers) ----
+        grad_lag = _grad_lagrangian(gm, Jm, Km, sol.y_dyn, sol.y_box, free)
+        stat_n = _amax2((grad_lag * free).abs())
+        feas_n = _amax2(c.abs())
+        step_norm = _amax2(step.abs())
+        converged = ((stat_n < tol_stat) & (feas_n < tol_feas)) | (
+            (step_norm < 1e-12) & (feas_n < tol_feas)
+        )
+        # freeze finished lanes: the loop runs until ALL lanes finish, and
+        # extra iterations must not move a lane that already satisfied its
+        # KKT tolerances (or spent its budget)
+        frozen = done | (it >= cfg.max_iter)
+        f2 = frozen[..., None, None]
+        W = torch.where(f2, W, W_new)
+        y_dyn = torch.where(f2, y_dyn, sol.y_dyn)
+        y_box = torch.where(f2, y_box, sol.y_box)
+        stat = torch.where(frozen, stat, stat_n)
+        feas = torch.where(frozen, feas, feas_n)
+        it = torch.where(frozen, it, it + 1)
+        qp_tot = torch.where(frozen, qp_tot, qp_tot + sol.iters)
+        done = torch.where(frozen, done, converged)
+        nu = torch.where(frozen, nu, nu_new)
+
+    status = torch.where(
+        done,
+        torch.full_like(it, int(SolverStatus.CONVERGED)),
+        torch.full_like(it, int(SolverStatus.EARLY_TERMINATED)),
+    )
+    return SQPResult(
+        traj=ocp.unpack(W), W=W, y_dyn=y_dyn, y_gen=y_gen, y_box=y_box,
+        iterations=it, objective=ocp.objective_from_W(W),
+        stat_res=stat, feas_res=feas, status=status, qp_iters=qp_tot,
+    )

@@ -1,0 +1,159 @@
+"""Hygiene of the PyTorch port: it stands alone.
+
+No module under control_box_rst_tpu_torch/ nor chip_smoke.py imports ``jax``
+or anything of ``control_box_rst_tpu``; the package imports on a CPU-only
+machine without building or looking for anything; its entry points refuse to
+run on the CPU unless asked to.
+"""
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "control_box_rst_tpu_torch"
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "control_box_rst_tpu", "triton")
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0], node.lineno
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_module_imports_no_jax(path):
+    bad = [(m, ln) for m, ln in _imported_roots(path) if m in FORBIDDEN]
+    assert not bad, f"{path}: forbidden imports {bad}"
+
+
+def test_every_listed_module_exists():
+    for rel in (
+        "utils/tree.py", "utils/precision.py", "core/types.py", "ops/smallmat.py",
+        "ops/btridiag.py", "ops/collocation.py", "ops/cuda/admm_kernel.py",
+        "csrc/admm_kernel.cu", "models/base.py", "models/benchmark.py",
+        "ocp/problem.py", "ocp/grids.py", "ocp/costs.py", "ocp/transcribe.py",
+        "solvers/stage_qp.py", "solvers/sqp.py", "parallel/sharded_solve.py",
+        "entry.py", "convert.py",
+    ):
+        assert (PKG / rel).is_file(), rel
+
+
+def test_package_imports_in_a_fresh_process_without_jax():
+    """Import every module of the package in a clean interpreter and check
+    that neither jax nor the JAX package came along, and that TF32 is off."""
+    mods = [
+        ".".join(p.relative_to(ROOT).with_suffix("").parts)
+        for p in SOURCES[:-1] if p.name != "__init__.py"
+    ]
+    code = (
+        "import importlib, sys\n"
+        f"[importlib.import_module(m) for m in {mods!r}]\n"
+        "import torch\n"
+        "assert 'jax' not in sys.modules and 'control_box_rst_tpu' not in sys.modules\n"
+        "assert not torch.backends.cuda.matmul.allow_tf32\n"
+        "assert not torch.backends.cudnn.allow_tf32\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True
+    )
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-2000:]
+
+
+def test_entry_points_refuse_the_cpu_unless_asked():
+    from control_box_rst_tpu_torch.entry import entry, flagship
+    from control_box_rst_tpu_torch.parallel import make_batched_solver
+    from control_box_rst_tpu_torch.utils.precision import resolve_device, resolve_dtype
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None is allowed to run")
+    ocp, cfg = flagship(N=4, device="cpu")
+    with pytest.raises(RuntimeError):
+        make_batched_solver(ocp, cfg, device=None)
+    with pytest.raises(RuntimeError):
+        entry()
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    assert resolve_device("cpu").type == "cpu"
+    with pytest.raises(ValueError):
+        resolve_dtype(torch.float16)
+    with pytest.raises(NotImplementedError):
+        make_batched_solver(ocp, cfg, device="cpu", mesh=object())
+
+
+def test_constructors_refuse_the_cpu_unless_asked():
+    """``flagship``, ``transcribe``, ``Bounds.unbounded``, every ``convert``
+    function and ``zero_warm_start`` create tensors, so ``device=None`` means
+    the card for them too."""
+    from control_box_rst_tpu_torch import convert
+    from control_box_rst_tpu_torch.entry import flagship
+    from control_box_rst_tpu_torch.models import DoubleIntegratorContinuous
+    from control_box_rst_tpu_torch.ocp import (
+        Bounds,
+        QuadraticFormCost,
+        finite_differences_grid,
+        transcribe,
+    )
+    from control_box_rst_tpu_torch.solvers.stage_qp import zero_warm_start
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None is allowed to run")
+    z = np.zeros((3, 2))
+    calls = [
+        lambda **kw: flagship(N=4, **kw),
+        lambda **kw: zero_warm_start(4, 4, 2, 0, **kw),
+        lambda **kw: Bounds.unbounded(2, 1, **kw),
+        lambda **kw: transcribe(
+            DoubleIntegratorContinuous(),
+            finite_differences_grid(4, fd_scheme="crank_nicolson"),
+            QuadraticFormCost(Q=torch.eye(2), R=torch.eye(1)), **kw),
+        lambda **kw: convert.trajectory_from_numpy(dict(X=z, U=z, dts=z), **kw),
+        lambda **kw: convert.qp_warm_start_from_numpy(
+            dict(delta=z, y_dyn=z, y_gen=z, y_box=z), **kw),
+        lambda **kw: convert.sqp_warm_start_from_numpy(
+            dict(W=z, y_dyn=z, y_gen=z, y_box=z), **kw),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+        call(device="cpu")
+    w = zero_warm_start(4, 4, 2, 0, device="cpu", lead=(3,))
+    assert w.delta.shape == (3, 5, 4) and w.delta.dtype == torch.float32
+
+
+def test_status_codes_match_the_reference():
+    from control_box_rst_tpu.core.types import SolverStatus as Ref
+    from control_box_rst_tpu_torch.core.types import SolverStatus
+
+    assert {s.name: int(s) for s in SolverStatus} == {s.name: int(s) for s in Ref}
+
+
+def test_entry_runs_on_cpu_when_asked():
+    from control_box_rst_tpu_torch.entry import entry
+
+    torch.set_num_threads(1)
+    fn, (x0s,) = entry(device="cpu")
+    U = fn(x0s[:2])
+    assert U.shape == (2, 50, 1) and bool(torch.isfinite(U).all())
+    assert float(U.abs().max()) <= 1.0 + 1e-4
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py")], cwd=ROOT,
+        capture_output=True, text=True,
+    )
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

@@ -1,0 +1,141 @@
+"""Shared helpers of the tests/test_torch_*.py files: the same numpy inputs,
+made from a seed, go to the JAX package and to its PyTorch port.
+
+The two packages share no objects; what crosses is numpy (``np.asarray`` of
+the JAX side, ``control_box_rst_tpu_torch.convert`` on the port's side).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from control_box_rst_tpu.models import DoubleIntegratorContinuous
+from control_box_rst_tpu.ocp import (
+    Bounds,
+    CompositeCost,
+    QuadraticFinalStateCost,
+    QuadraticFormCost,
+    finite_differences_grid,
+    transcribe,
+)
+from control_box_rst_tpu.solvers import QPConfig, SQPConfig, StageQP
+
+from control_box_rst_tpu_torch import convert
+
+TORCH_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+def to_np(a):
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def cast_tree(tree, dtype):
+    """Cast every floating leaf of a JAX pytree (the x64 test configuration
+    makes f64 arrays by default; the f32 production path must be asked for)."""
+    return jax.tree.map(
+        lambda a: a.astype(dtype)
+        if hasattr(a, "dtype") and jnp.issubdtype(a.dtype, jnp.floating)
+        else a,
+        tree,
+    )
+
+
+def jax_flagship(N, dtype, cost_integration="left_sum", integral=False):
+    """The config-1 OCP and solver settings of the JAX package, as
+    ``__graft_entry__._flagship`` builds them, cast to ``dtype``."""
+    grid = finite_differences_grid(
+        N, fd_scheme="crank_nicolson", cost_integration=cost_integration
+    )
+    cost = CompositeCost(
+        costs=(
+            QuadraticFormCost(Q=jnp.eye(2), R=0.1 * jnp.eye(1), integral=integral),
+            QuadraticFinalStateCost(Qf=10.0 * jnp.eye(2)),
+        ),
+        integral=integral,
+    )
+    bounds = Bounds.unbounded(2, 1).with_u(-1.0, 1.0).with_dt(0.1, 0.1)
+    ocp = transcribe(
+        DoubleIntegratorContinuous(), grid, cost, bounds=bounds, x0=jnp.zeros(2)
+    )
+    cfg = SQPConfig(
+        max_iter=16,
+        qp=QPConfig(max_iter=12, iters_per_round=12, rho=1.0, tol=1e-5),
+        tol_stat=1e-4,
+        tol_feas=1e-5,
+    )
+    return cast_tree(ocp, dtype), cfg
+
+
+def spec_from_jax_ocp(ocp):
+    """numpy dict of a JAX config-1-style TranscribedOCP, the form
+    ``convert.ocp_from_numpy`` reads."""
+    form, final = ocp.cost.costs
+    opt = lambda a: None if a is None else np.asarray(a)
+    return dict(
+        N=ocp.grid.N, nx=ocp.nx, nu=ocp.nu, system="serial_integrators",
+        time_constant=float(ocp.system.time_constant),
+        grid_kind=ocp.grid.kind, fd_scheme=ocp.grid.fd_scheme,
+        cost_integration=ocp.grid.cost_integration, dt_mode=ocp.grid.dt_mode,
+        cost_integral=bool(ocp.cost.integral),
+        Q=np.asarray(form.Q), R=np.asarray(form.R), Qf=np.asarray(final.Qf),
+        x_lb=np.asarray(ocp.bounds.x_lb), x_ub=np.asarray(ocp.bounds.x_ub),
+        u_lb=np.asarray(ocp.bounds.u_lb), u_ub=np.asarray(ocp.bounds.u_ub),
+        dt_lb=np.asarray(ocp.bounds.dt_lb), dt_ub=np.asarray(ocp.bounds.dt_ub),
+        xref=np.asarray(ocp.refs.xref), uref=np.asarray(ocp.refs.uref),
+        x0=np.asarray(ocp.bc.x0), xf=opt(ocp.bc.xf), xf_fixed=opt(ocp.bc.xf_fixed),
+        stage_mask=np.asarray(ocp.stage_mask),
+    )
+
+
+def torch_ocp_like(jax_ocp, dtype_name):
+    return convert.ocp_from_numpy(
+        spec_from_jax_ocp(jax_ocp), dtype=TORCH_DTYPES[dtype_name], device="cpu"
+    )
+
+
+def random_qp_np(seed, Kst=9, NZ=4, NC=2):
+    """The random box QP of tests/test_admm_pallas.py as a numpy dict."""
+    rng = np.random.default_rng(seed)
+    N = Kst - 1
+    A = rng.standard_normal((Kst, NZ, NZ)) * 0.3
+    Hd = np.einsum("kij,klj->kil", A, A) + 2.0 * np.eye(NZ)
+    g = rng.standard_normal((Kst, NZ))
+    J = rng.standard_normal((N, NC, NZ)) * 0.5
+    K = rng.standard_normal((N, NC, NZ)) * 0.5
+    c = rng.standard_normal((N, NC)) * 0.1
+    dlb = np.full((Kst, NZ), -0.7)
+    dub = np.full((Kst, NZ), 0.7)
+    # pin a few rows (dlb == dub == 0), like fixed x0 / dummy stage vars
+    dlb[0, :2] = dub[0, :2] = 0.0
+    dlb[-1, -1] = dub[-1, -1] = 0.0
+    return dict(
+        Hd=Hd, g=g, J=J, K=K, c=c, G=np.zeros((Kst, 0, NZ)),
+        gl=np.zeros((Kst, 0)), gu=np.zeros((Kst, 0)), dlb=dlb, dub=dub,
+    )
+
+
+def random_qp_batch_np(seeds, **kw):
+    qps = [random_qp_np(s, **kw) for s in seeds]
+    return {k: np.stack([q[k] for q in qps]) for k in qps[0]}
+
+
+def jax_stage_qp(d, dtype):
+    return StageQP(**{k: jnp.asarray(v, dtype) for k, v in d.items()})
+
+
+KERNEL_ARG_ORDER = ("Hd", "J", "K", "g", "c", "dlb", "dub")
+
+
+def kernel_args_np(d, rho, np_dtype):
+    """Reference-order operands of the round / solve functions with the cold
+    start x = 0, z_b = clip(0, dlb, dub), y = 0."""
+    B, Kst, NZ = d["g"].shape
+    N, NC = d["c"].shape[1:]
+    zeros = np.zeros((B, Kst, NZ))
+    args = [d[k] for k in KERNEL_ARG_ORDER] + [
+        np.full((B,), rho), zeros, np.clip(zeros, d["dlb"], d["dub"]),
+        np.zeros((B, N, NC)), zeros,
+    ]
+    return [np.asarray(a, np_dtype) for a in args]
