@@ -1,32 +1,47 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
-Drives the port's main path — the config-1 batched MPC solve (H=50 double
-integrator, B=32768 lanes, float32) through ``make_batched_solver`` — on the
-card, after building every CUDA kernel of that path from the sources in this
-checkout and holding each kernel against its plain PyTorch version on the same
-inputs. There is no CPU path: without a CUDA device the script exits non-zero
-and prints no result. Any phase that fails raises, and the run fails with it.
+Drives the port's two main paths on the card — the config-1 batched MPC solve
+by SQP (H=50 double integrator, B=32768 lanes, float32) through
+``make_batched_solver``, and the same batch by Levenberg-Marquardt through
+``make_batched_lm_solver`` — after building every CUDA kernel of those paths
+from the sources in this checkout and holding each kernel against its plain
+PyTorch version on the same inputs. There is no CPU path: without a CUDA
+device the script exits non-zero and prints no result. Any phase that fails
+raises, and the run fails with it.
 
 Phases
   1 device   require CUDA; card name and power limit (nvidia-smi)
-  2 build    compile csrc/*.cu with nvcc (seconds)
-  3 kernels  kernel vs plain version at flagship shapes (Kst=51, nz=4, nc=2):
-             256 lanes of well-conditioned random QPs against the stated
-             tolerances, 256 lanes of config-1 QPs built by the port against
-             the float64 plain version, then the main path's batch for the
-             production exits, the warm-started round of the outer SQP
-             iteration, times and roofline bounds
-  4 main     the batched solve; gates: converged fraction >= 0.99, max
+  2 build    compile csrc/*.cu with nvcc, one process per source, started
+             together (seconds)
+  3 kernels  box-QP ADMM kernels vs plain version at flagship shapes (Kst=51,
+             nz=4, nc=2): 256 lanes of well-conditioned random QPs against the
+             stated tolerances, 256 lanes of config-1 QPs built by the port
+             against the float64 plain version, then the main path's batch for
+             the production exits, the warm-started round of the outer SQP
+             iteration, times and roofline bounds.
+             Block-tridiagonal factor-and-solve kernels (three sweeps; two
+             sweeps in place) vs plain version at K=51, nz=4, B=32768: random
+             SPD systems (atol 5e-6), the damped Gauss-Newton systems of LM's
+             first and of a late iteration on the config-1 batch (as close to
+             the float64 plain version as the float32 plain version), B=1 and
+             a batch not divisible by 32, the two kernels against each other,
+             times, bounds and the dense library call as a yardstick
+  4 main     the batched SQP solve; gates: converged fraction >= 0.99, max
              |U - U_oracle| <= 1e-3 on the first 64 lanes (f64 oracle golden
              file), kernel launch counter > 0; solves/s, mean SQP iterations,
              peak device memory, p99 of 50 single solves
-  5 result   one JSON line with every kernel's record, then the contract line
+  5 lm       the batched LM solve through the in-place kernel; gates:
+             converged fraction >= 0.99, launch counter > 0, and on the first
+             64 lanes U and chi2 as close to the f64 LM golden file as the
+             reference's own float32 LM (stored in that file); then the same
+             batch through the three-sweep kernel, which must give the same U
+  6 result   one JSON line with every kernel's record, then the contract line
 
-Output: progress lines, then a ``{"main": ...}`` line, the nvidia-smi line, a
-``{"kernels": [...]}`` line, and as the last line
+Output: progress lines, then a ``{"main": ...}`` line, a ``{"lm": ...}`` line,
+the nvidia-smi line, a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -45,10 +60,13 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
 GOLDEN = ROOT / "tests" / "golden" / "torch_flagship_oracle_N50.npz"
-BATCH = 32768      # lanes of the main path
+LM_GOLDEN = ROOT / "tests" / "golden" / "torch_lm_oracle_N50.npz"
+BATCH = 32768      # lanes of the main paths
 SMALL_BATCH = 256  # lanes of the tolerance checks
-KERNEL_REPS = 5    # launches per kernel timing
-TRIALS, REPS = 4, 3  # main path: best of TRIALS windows of REPS solves
+KERNEL_REPS = 3    # launches per kernel timing
+TRIALS, REPS = 3, 2  # SQP path: best of TRIALS windows of REPS solves
+LM_TRIALS = 2      # LM path: best of LM_TRIALS single batches
+LM_LATE_ITERATION = 15  # the "late" LM iteration whose linear system is checked
 CONV_GATE = 0.99
 ERR_GATE = 1e-3
 # published peaks of one H100 SXM (NVIDIA data sheet): the roofline yardstick
@@ -371,6 +389,181 @@ def phase_kernels(ocp, cfg, x0s_all, small_b: int, reps: int):
     return records
 
 
+def random_spd_systems(B, K, nz, device):
+    """Well-conditioned random SPD block-tridiagonal systems (the systems of
+    the JAX package's own kernel test, batched), made from a seed with numpy."""
+    rng = np.random.default_rng(3)
+    D = rng.standard_normal((B, K, nz, nz), dtype=np.float32)
+    D = D @ D.transpose(0, 1, 3, 2) + 10 * np.eye(nz, dtype=np.float32)
+    O = 0.3 * rng.standard_normal((B, K - 1, nz, nz), dtype=np.float32)
+    b = rng.standard_normal((B, K, nz), dtype=np.float32)
+    return [torch.as_tensor(a, device=device) for a in (D, O, b)]
+
+
+def lm_systems(ocp, cfg, x0s, iterations):
+    """The damped Gauss-Newton systems (Dmu, O, g) that the LM solve of the
+    config-1 batch hands to the block-tridiagonal kernel at the given
+    iterations (0 = the first), each lane with its own mu and weights."""
+    from control_box_rst_tpu_torch.ocp.problem import Trajectory
+    from control_box_rst_tpu_torch.solvers.lm import LMProblem, freeze_inactive
+
+    o = ocp.replace(bc=ocp.bc.replace(x0=x0s))
+    traj0 = o.apply_boundary(
+        Trajectory.linear_interp(x0s, o.refs.xref[-1], o.N, o.nu, 0.1))
+    prob = LMProblem(o, cfg, x0s.dtype)
+    state = prob.init_state(o.pack(traj0))
+    out = {}
+    for it in range(max(iterations) + 1):
+        if it in iterations:
+            Dmu, _, O, g, _ = prob.damped_system(state)
+            out[it] = (Dmu, O, g)
+        state = freeze_inactive(prob.cond(state), prob.iteration(state), state)
+    return out
+
+
+def dense_library_ms(D, O, b, x_ref, reps):
+    """Milliseconds of the one PyTorch call that computes the same function:
+    Cholesky factor and solve of the dense [B, K*nz, K*nz] assembly (assembly
+    not timed). Tried at the full batch and halved until it fits in memory;
+    returns (ms, batch timed). A yardstick only: the port never calls it."""
+    K, nz = D.shape[1], D.shape[2]
+    n = K * nz
+    B = D.shape[0]
+    while B >= 1:
+        try:
+            M = torch.zeros((B, n, n), dtype=D.dtype, device=D.device)
+            for k in range(K):
+                sl = slice(k * nz, (k + 1) * nz)
+                M[:, sl, sl] = D[:B, k]
+                if k < K - 1:
+                    nx = slice((k + 1) * nz, (k + 2) * nz)
+                    M[:, sl, nx] = O[:B, k]
+                    M[:, nx, sl] = O[:B, k].transpose(-1, -2)
+            rhs = b[:B].reshape(B, n, 1)
+            call = lambda: torch.cholesky_solve(rhs, torch.linalg.cholesky(M))
+            x = call().reshape(B, K, nz)
+            err = float((x - x_ref[:B]).abs().max())
+            if not err <= 5e-5:
+                raise AssertionError(f"dense library solve disagrees with the kernel: {err:.3e}")
+            ms = time_ms(call, reps)
+            del M, x
+            torch.cuda.empty_cache()
+            return ms, B
+        except torch.cuda.OutOfMemoryError:
+            M = x = None
+            torch.cuda.empty_cache()
+            B //= 2
+    raise RuntimeError("the dense library solve fits at no batch size")
+
+
+def phase_btridiag_kernels(ocp, lm_cfg, x0s_all, reps: int):
+    """The two block-tridiagonal factor-and-solve kernels against their plain
+    version; returns their records (three-sweep kernel first).
+
+    On well-conditioned random SPD systems kernel and float32 plain version
+    must agree to atol 5e-6 (the bound of the JAX package's own kernel test).
+    LM's own systems J'J + mu I are badly conditioned once the penalty weights
+    have grown (x10 per stall), so there the yardstick is the float64 plain
+    version: the kernel must be as close to it as the float32 plain version is
+    (slack 2x + 1e-5), on the lanes where all three are finite; a system that
+    is not positive definite in float32 gives NaN in its lane on either side,
+    and the kernel may not lose more lanes to that than the plain version
+    (+5 % of its count, +0.1 % of the batch: a pivot at the rounding level
+    falls on either side of zero).
+    """
+    from control_box_rst_tpu_torch.ops.cuda import btridiag_kernel as bk
+
+    B, K, nz = x0s_all.shape[0], ocp.N + 1, ocp.nz
+    dev = x0s_all.device
+    solve = {
+        "btridiag_factor_solve": lambda D, O, b: bk.btridiag_factor_solve(D, O, b, inplace=False),
+        "btridiag_factor_solve_inplace": lambda D, O, b: bk.btridiag_factor_solve(D, O, b, inplace=True),
+    }
+    errs = {}
+
+    # ---- (i) random SPD systems, full batch ----
+    D, O, b = random_spd_systems(B, K, nz, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x_plain = bk.btridiag_factor_solve_plain(D, O, b)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    x_kern, max_err = {}, {}
+    for name, fn in solve.items():
+        x_kern[name] = fn(D, O, b)
+        torch.cuda.synchronize()
+        max_err[name] = assert_close(f"{name} random SPD", x_kern[name], x_plain, rtol=0.0, atol=5e-6)
+    # ---- (iv) the two kernels against each other ----
+    d34 = float((x_kern["btridiag_factor_solve"] - x_kern["btridiag_factor_solve_inplace"]).abs().max())
+    if not d34 <= 1e-6:
+        raise AssertionError(f"the two block-tridiagonal kernels differ by {d34:.3e} > 1e-6")
+    errs["random/three_sweeps_vs_inplace"] = d34
+    # ---- (iii) B = 1 (the other layout instance) and a ragged last tile ----
+    for n in (1, 1000):
+        for name, fn in solve.items():
+            x_n = fn(D[:n], O[:n], b[:n])
+            torch.cuda.synchronize()
+            if not torch.equal(x_n, x_kern[name][:n]):
+                errs[f"random/{name}_B{n}"] = assert_close(
+                    f"{name} B={n}", x_n, x_plain[:n], rtol=0.0, atol=5e-6)
+    # D and O broadcast over the batch (stride 0) are taken as they are
+    De, Oe = D[0].expand(D[:64].shape), O[0].expand(O[:64].shape)
+    x_b = solve["btridiag_factor_solve_inplace"](De, Oe, b[:64])
+    torch.cuda.synchronize()
+    assert_close("broadcast D/O", x_b, bk.btridiag_factor_solve_plain(De, Oe, b[:64]),
+                 rtol=0.0, atol=5e-6)
+    # the caller's D and O are not written by the in-place kernel
+    D_before = D[:64].clone()
+    solve["btridiag_factor_solve_inplace"](D[:64], O[:64], b[:64])
+    torch.cuda.synchronize()
+    if not torch.equal(D[:64], D_before):
+        raise AssertionError("the in-place kernel wrote to the caller's D")
+
+    # ---- times, bounds, library yardstick (random systems, full batch) ----
+    ms = {name: time_ms(lambda fn=fn: fn(D, O, b), reps) for name, fn in solve.items()}
+    lib_ms, lib_B = dense_library_ms(D, O, b, x_kern["btridiag_factor_solve_inplace"], 2)
+    t_bytes = bk.io_bytes(K, nz, B) / PEAK_BYTES_PER_S * 1e3
+    t_ops = B * bk.factor_solve_flops(K, nz) / PEAK_FP32_PER_S * 1e3
+    del D, O, b, x_plain, x_kern
+
+    # ---- (ii) LM's own systems on the config-1 batch ----
+    systems = lm_systems(ocp, lm_cfg, x0s_all, (0, LM_LATE_ITERATION))
+    lm_errs = {name: {} for name in solve}
+    for it, (Dmu, O, g) in systems.items():
+        x_p = bk.btridiag_factor_solve_plain(Dmu, O, g)
+        x_d = bk.btridiag_factor_solve_plain(Dmu.double(), O.double(), g.double())
+        fin = lambda x: torch.isfinite(x).all(dim=2).all(dim=1)
+        for name, fn in solve.items():
+            x_k = fn(Dmu, O, g)
+            torch.cuda.synchronize()
+            lost_k, lost_p = int((~fin(x_k)).sum()), int((~fin(x_p)).sum())
+            if lost_k > 1.05 * lost_p + B // 1000:
+                raise AssertionError(
+                    f"{name} LM iteration {it}: {lost_k} non-finite lanes, the plain version {lost_p}")
+            ok = fin(x_k) & fin(x_p) & fin(x_d)
+            e_k, e_p = assert_as_close_as_plain(
+                f"{name} LM iteration {it}", x_k[ok], x_p[ok], x_d[ok])
+            lm_errs[name][f"it{it}"] = dict(
+                err_vs_f64=e_k, plain_err_vs_f64=e_p, x_max=float(x_d[ok].abs().max()),
+                nonfinite_lanes=lost_k, plain_nonfinite_lanes=lost_p)
+    log(f"btridiag kernels[{B} lanes]: " + json.dumps({**errs, "lm_systems": lm_errs}))
+
+    replaces = {
+        "btridiag_factor_solve": "control_box_rst_tpu/ops/pallas/btridiag_kernel.py:194",
+        "btridiag_factor_solve_inplace": "control_box_rst_tpu/ops/pallas/btridiag_kernel_v2.py:147",
+    }
+    return [dict(
+        name=name, route="cuda",
+        source="control_box_rst_tpu_torch/csrc/btridiag_kernel.cu",
+        replaces=replaces[name], launches=0, max_abs_err=max_err[name],
+        ms=ms[name], plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        library_ms=lib_ms, library_batch=lib_B, on_main_path=True, batch=B,
+        bound_bytes_ms=t_bytes, bound_ops_ms=t_ops,
+        three_sweeps_vs_inplace=d34, lm_systems=lm_errs[name],
+    ) for name in solve]
+
+
 def phase_main(ocp, cfg, x0s_np, trials: int, reps: int):
     from control_box_rst_tpu_torch.ops.cuda import admm_kernel as ak
     from control_box_rst_tpu_torch.parallel import make_batched_solver
@@ -435,17 +628,128 @@ def phase_main(ocp, cfg, x0s_np, trials: int, reps: int):
     )
 
 
-def phase_profile(ocp, cfg, x0s_np, top: int = 14):
-    """torch.profiler over one batched solve and one single solve: device time
-    by kernel name, and the share of the wall time the device sat idle."""
+def phase_lm(ocp, cfg, x0s_np, trials: int):
+    """The batched LM solve of config 1 through the in-place kernel, then once
+    more through the three-sweep kernel; returns the launch counts of the two
+    runs and the record of the ``{"lm": ...}`` line.
+
+    Gates. The float64 LM of the reference is the golden file; but float32 LM
+    does not reproduce float64 LM lane by lane in ANY implementation: its
+    accept and stall tests sit below float32 resolution near the solution, a
+    stall at an infeasible point multiplies the penalty weights by 10, and
+    the weights a lane ends with decide its answer. The reference's own
+    float32 solve of the golden lanes (in the file) is up to 0.46 from its
+    float64 solve. So the port's float32 solve on the card is held to being as
+    close to the float64 golden as the reference's float32 solve is: mean and
+    max over the golden lanes of the per-lane max |U - U_golden|, and of the
+    relative chi2 gap, each <= 2x the reference's + 1e-3; the median |U| error
+    <= 1e-3 outright.
+    """
+    from control_box_rst_tpu_torch.ops.cuda import btridiag_kernel as bk
+    from control_box_rst_tpu_torch.parallel import make_batched_lm_solver
+
+    solver = make_batched_lm_solver(ocp, cfg, dt_init=0.1)  # device=None: the card
+    B = x0s_np.shape[0]
+    x0s = torch.as_tensor(x0s_np, device="cuda")
+    solver(x0s[:256])  # warm-up
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    bk.reset_launch_counts()
+    t0 = time.perf_counter()
+    U, chi2, status, iters, feas = solver(x0s)
+    torch.cuda.synchronize()
+    best = time.perf_counter() - t0
+    launches = dict(bk.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+
+    if U.shape != (B, ocp.N, ocp.nu) or not bool(torch.isfinite(U).all()):
+        raise AssertionError(f"LM path: U has shape {tuple(U.shape)} or non-finite values")
+    conv = float((status == 1).float().mean())
+    if launches["btridiag_factor_solve_inplace"] <= 0 or launches["btridiag_factor_solve"] != 0:
+        raise AssertionError(f"LM path: unexpected kernel launches {launches}")
+    if conv < CONV_GATE:
+        raise AssertionError(f"LM converged_frac {conv:.4f} < {CONV_GATE}")
+
+    gold = np.load(LM_GOLDEN)
+    n_g = gold["U"].shape[0]
+    if not np.array_equal(gold["x0s"], x0s_np[:n_g]):
+        raise AssertionError("LM golden file was made for other initial states")
+    lane_err = lambda u: np.abs(u - gold["U"]).max(axis=(1, 2))
+    chi_gap = lambda c: np.abs(c - gold["chi2"]) / (1.0 + gold["chi2"])
+    e_port, e_ref = lane_err(U[:n_g].double().cpu().numpy()), lane_err(gold["U_f32"])
+    c_port, c_ref = chi_gap(chi2[:n_g].double().cpu().numpy()), chi_gap(gold["chi2_f32"])
+    c_port = c_port[np.isfinite(c_port)]  # inf: a lane whose weights grew last
+    quality = dict(
+        u_err_median=float(np.median(e_port)), u_err_mean=float(e_port.mean()),
+        u_err_max=float(e_port.max()), lanes_above_1e3=int((e_port > 1e-3).sum()),
+        ref_f32_u_err_median=float(np.median(e_ref)), ref_f32_u_err_mean=float(e_ref.mean()),
+        ref_f32_u_err_max=float(e_ref.max()), ref_f32_lanes_above_1e3=int((e_ref > 1e-3).sum()),
+        chi2_gap_mean=float(c_port.mean()), chi2_gap_max=float(c_port.max()),
+        ref_f32_chi2_gap_mean=float(c_ref.mean()), ref_f32_chi2_gap_max=float(c_ref.max()),
+    )
+    log("lm quality vs f64 golden: " + json.dumps(quality))
+    for key in ("u_err_mean", "u_err_max", "chi2_gap_mean", "chi2_gap_max"):
+        if not quality[key] <= 2.0 * quality["ref_f32_" + key] + 1e-3:
+            raise AssertionError(
+                f"LM {key} {quality[key]:.3e} > 2 x the reference's float32 "
+                f"{quality['ref_f32_' + key]:.3e} + 1e-3")
+    if not quality["u_err_median"] <= ERR_GATE:
+        raise AssertionError(f"LM median |U - U_golden| {quality['u_err_median']:.3e} > {ERR_GATE}")
+
+    for _ in range(trials - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver(x0s)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+
+    # the same batch through the three-sweep kernel: same U
+    solver3 = make_batched_lm_solver(ocp, cfg, dt_init=0.1, inplace=False)
+    bk.reset_launch_counts()
+    U3, _, status3, iters3, _ = solver3(x0s)
+    torch.cuda.synchronize()
+    launches3 = dict(bk.LAUNCHES)
+    if launches3["btridiag_factor_solve"] <= 0 or launches3["btridiag_factor_solve_inplace"] != 0:
+        raise AssertionError(f"LM path (three sweeps): unexpected kernel launches {launches3}")
+    du3 = float((U3 - U).abs().max())
+    if not du3 <= 1e-6 or not torch.equal(status3, status):
+        raise AssertionError(f"LM through the two kernels differs: max |dU| {du3:.3e}")
+
+    x0_1 = x0s[:1]
+    solver(x0_1)
+    torch.cuda.synchronize()
+    lats = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        solver(x0_1)
+        torch.cuda.synchronize()
+        lats.append(time.perf_counter() - t0)
+
+    counts = {
+        "btridiag_factor_solve_inplace": launches["btridiag_factor_solve_inplace"],
+        "btridiag_factor_solve": launches3["btridiag_factor_solve"],
+    }
+    return counts, dict(
+        batch=B, solves_per_s=B / best, batch_solve_ms=best * 1e3,
+        converged_frac=conv, mean_lm_iters=float(iters.float().mean()),
+        max_lm_iters=int(iters.max()), max_feas_res=float(feas.max()),
+        launches=counts, max_du_three_sweeps_vs_inplace=du3,
+        peak_device_memory_gib=peak_gb, **quality,
+        p50_single_solve_ms=float(np.percentile(np.asarray(lats), 50) * 1e3),
+        p99_single_solve_ms=float(np.percentile(np.asarray(lats), 99) * 1e3),
+    )
+
+
+def phase_profile(solvers, x0s_np, top: int = 14):
+    """torch.profiler over one batched solve of each main path and one single
+    SQP solve: device time by kernel name, and the share of the wall time the
+    device sat idle. ``solvers``: label -> (solver, number of lanes)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from control_box_rst_tpu_torch.parallel import make_batched_solver
-
-    solver = make_batched_solver(ocp, cfg, dt_init=0.1)
     out = {}
-    for label, x0s in (("batch", x0s_np), ("single", x0s_np[:1])):
-        x = torch.as_tensor(x0s, device="cuda")
+    for label, (solver, lanes) in solvers.items():
+        x = torch.as_tensor(x0s_np[:lanes], device="cuda")
         solver(x)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -472,7 +776,8 @@ def phase_profile(ocp, cfg, x0s_np, top: int = 14):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one batched and one single solve with torch.profiler")
+                    help="also trace one batched solve of each main path and one "
+                         "single solve with torch.profiler")
     ap.add_argument("--skip-main", action="store_true",
                     help="stop after the kernel phase (no result line)")
     opts = ap.parse_args()
@@ -486,40 +791,55 @@ def main() -> int:
     log(f"device: {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
-    from control_box_rst_tpu_torch.entry import flagship
+    from control_box_rst_tpu_torch.entry import flagship, flagship_lm
     from control_box_rst_tpu_torch.ops.cuda import admm_kernel as ak
+    from control_box_rst_tpu_torch.ops.cuda import btridiag_kernel as bk
+    from control_box_rst_tpu_torch.ops.cuda import build
 
     # ---- 2 build ----
     ocp, cfg = flagship(N=50)
+    _, lm_cfg = flagship_lm(N=50)
     t0 = time.perf_counter()
-    lib = ak.build(ocp.nz, ocp.nc, verbose=True)
-    log(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
+    libs = build.build_all(
+        [ak.build_spec(ocp.nz, ocp.nc), bk.build_spec(ocp.nz)], verbose=True)
+    log(f"build: {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.1f} s")
 
     rng = np.random.default_rng(0)
     x0s_np = rng.uniform(-1.0, 1.0, size=(BATCH, 2)).astype(np.float32)
 
     # ---- 3 kernels ----
     ocp_dev = ocp.to(device="cuda", dtype=torch.float32)
-    records = phase_kernels(
-        ocp_dev, cfg, torch.as_tensor(x0s_np, device="cuda"),
-        SMALL_BATCH, KERNEL_REPS,
-    )
+    x0s_dev = torch.as_tensor(x0s_np, device="cuda")
+    records = phase_kernels(ocp_dev, cfg, x0s_dev, SMALL_BATCH, KERNEL_REPS)
+    records += phase_btridiag_kernels(ocp_dev, lm_cfg, x0s_dev, KERNEL_REPS)
     if opts.skip_main:
         log(json.dumps({"kernels": records}))
         return 3
 
-    # ---- 4 main path ----
+    # ---- 4 main path (SQP), 5 LM path ----
     launches, main_rec = phase_main(ocp, cfg, x0s_np, TRIALS, REPS)
+    lm_launches, lm_rec = phase_lm(ocp, lm_cfg, x0s_np, LM_TRIALS)
+    launches = {**launches, **lm_launches}  # each count from its own path's run
     for r in records:
         r["launches"] = launches[r["name"]]
         if r["on_main_path"] and r["launches"] <= 0:
-            raise AssertionError(f"kernel {r['name']} was not launched by the main path")
+            raise AssertionError(f"kernel {r['name']} was not launched by its main path")
 
     if opts.profile:
-        log(json.dumps({"profile": phase_profile(ocp, cfg, x0s_np)}))
+        from control_box_rst_tpu_torch.parallel import (
+            make_batched_lm_solver,
+            make_batched_solver,
+        )
 
-    # ---- 5 result ----
+        sqp = make_batched_solver(ocp, cfg, dt_init=0.1)
+        lm = make_batched_lm_solver(ocp, lm_cfg, dt_init=0.1)
+        log(json.dumps({"profile": phase_profile(
+            {"batch": (sqp, BATCH), "single": (sqp, 1), "lm_batch": (lm, BATCH)},
+            x0s_np)}))
+
+    # ---- 6 result ----
     log(json.dumps({"main": main_rec}))
+    log(json.dumps({"lm": lm_rec}))
     log(smi)
     log(json.dumps({"kernels": records}))
     log(json.dumps({

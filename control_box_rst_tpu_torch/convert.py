@@ -8,7 +8,8 @@ handed to the port — is a dict of numpy arrays and static fields (the form
 ``ocp_from_numpy(spec)`` keys (arrays are numpy, anything array-like works):
 
   static:  N, nx, nu, system ("serial_integrators"), time_constant,
-           grid_kind, fd_scheme, cost_integration, dt_mode, cost_integral
+           grid_kind, fd_scheme ("crank_nicolson" | "forward"),
+           cost_integration, dt_mode, cost_integral, lsq_form
   cost:    Q [nx,nx], R [nu,nu], Qf [nx,nx] (Qf optional)
   bounds:  x_lb, x_ub [nx], u_lb, u_ub [nu], dt_lb, dt_ub scalars
   refs:    xref [N+1,nx], uref [N,nu]
@@ -69,7 +70,9 @@ def ocp_from_numpy(spec: Mapping[str, Any], dtype=None,
         dt_mode=spec.get("dt_mode", "fixed"),
     )
     integral = bool(spec.get("cost_integral", False))
-    costs = [QuadraticFormCost(Q=t("Q"), R=t("R"), integral=integral)]
+    costs = [QuadraticFormCost(
+        Q=t("Q"), R=t("R"), integral=integral,
+        lsq_form=bool(spec.get("lsq_form", False)))]
     if spec.get("Qf") is not None:
         costs.append(QuadraticFinalStateCost(Qf=t("Qf")))
     cost = CompositeCost(costs=tuple(costs), integral=integral)

@@ -5,6 +5,8 @@ Counterpart of the JAX package's ``__graft_entry__.py``:
 flagship(N)  → (ocp, cfg): the config-1 OCP — H=N double integrator,
                quadratic cost, |u| ≤ 1, Crank–Nicolson finite differences,
                dt pinned at 0.1 — with its solver settings.
+flagship_lm(N) → (ocp, LMConfig): the same OCP with the settings of the
+               Levenberg-Marquardt backend.
 entry()      → (fn, example_args): the batched MPC solve on that config.
 """
 from __future__ import annotations
@@ -53,6 +55,15 @@ def flagship(N: int = 50, dtype=None, device=None):
         tol_feas=1e-5,
     )
     return ocp, cfg
+
+
+def flagship_lm(N: int = 50, dtype=None, device=None):
+    """The config-1 OCP of ``flagship`` with the Levenberg-Marquardt backend's
+    settings (``parallel.make_batched_lm_solver`` takes both)."""
+    from control_box_rst_tpu_torch.solvers import LMConfig
+
+    ocp, _ = flagship(N, dtype=dtype, device=device)
+    return ocp, LMConfig(max_iter=60)
 
 
 def entry(device=None):

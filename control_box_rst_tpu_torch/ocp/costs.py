@@ -7,18 +7,40 @@ dataclass with a pure ``stage(x, u, dt, xref, uref) -> [...]`` (and
 every lane. ``integral=True`` costs are quadrature-weighted by the
 transcription; non-integral costs are summed per stage.
 
-This slice carries the quadratic tracking costs of config 1.
+The least-squares form for the Gauss-Newton / Levenberg-Marquardt solver is
+``stage_residual`` / ``final_residual``: r with cost = rᵀr, [..., n_r]. The
+matrix square roots it needs are taken once, when the cost object is built
+(on the host, in float64), not per evaluation.
+
+So far the port carries the quadratic tracking costs of config 1.
 """
 from __future__ import annotations
 
 import torch
 
+from control_box_rst_tpu_torch.ops.smallmat import mv_small
 from control_box_rst_tpu_torch.utils.tree import plain_dataclass
 
 
 def _quad(d: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
     """dᵀ M d over the last dim, broadcast-multiply-sum."""
     return (d[..., :, None] * M * d[..., None, :]).sum(dim=(-2, -1))
+
+
+def _sqrtm_psd(M: torch.Tensor) -> torch.Tensor:
+    """Symmetric PSD matrix square root via eigh (small matrices), computed
+    on the host in float64 and returned as ``M``'s dtype on ``M``'s device."""
+    w, V = torch.linalg.eigh(M.detach().to(device="cpu", dtype=torch.float64))
+    root = (V * torch.sqrt(torch.clamp(w, min=0.0))[None, :]) @ V.T
+    return root.to(device=M.device, dtype=M.dtype)
+
+
+def _set_sqrt(obj, **matrices) -> None:
+    """Keep the square roots of a frozen cost object's weights beside them
+    (plain attributes, not dataclass fields: a copy on another device or in
+    another dtype takes them anew from its own weights)."""
+    for name, M in matrices.items():
+        object.__setattr__(obj, name, None if M is None else _sqrtm_psd(M))
 
 
 @plain_dataclass
@@ -39,6 +61,14 @@ class StageCost:
     def final(self, x, xref):
         return torch.zeros_like(x[..., 0])
 
+    def stage_residual(self, x, u, dt, xref, uref):
+        """LSQ residual r [..., n_r] with cost = r'r. Default: none (empty)."""
+        return (x - xref)[..., :0]
+
+    def final_residual(self, x, xref):
+        """LSQ residual of the terminal cost, final = r'r. Default: none."""
+        return (x - xref)[..., :0]
+
 
 @plain_dataclass
 class QuadraticFormCost(StageCost):
@@ -48,8 +78,16 @@ class QuadraticFormCost(StageCost):
     Q: torch.Tensor = None  # [nx, nx]
     R: torch.Tensor = None  # [nu, nu]
 
+    def __post_init__(self):
+        _set_sqrt(self, _Qs=self.Q, _Rs=self.R)
+
     def stage(self, x, u, dt, xref, uref):
         return _quad(x - xref, self.Q) + _quad(u - uref, self.R)
+
+    def stage_residual(self, x, u, dt, xref, uref):
+        # sqrt-weighted residual; assumes Q, R PSD
+        return torch.cat(
+            [mv_small(self._Qs, x - xref), mv_small(self._Rs, u - uref)], dim=-1)
 
 
 @plain_dataclass
@@ -59,8 +97,14 @@ class QuadraticFinalStateCost(StageCost):
     quadratic: bool = True
     Qf: torch.Tensor = None
 
+    def __post_init__(self):
+        _set_sqrt(self, _Qfs=self.Qf)
+
     def final(self, x, xref):
         return _quad(x - xref, self.Qf)
+
+    def final_residual(self, x, xref):
+        return mv_small(self._Qfs, x - xref)
 
 
 @plain_dataclass
@@ -89,3 +133,11 @@ class CompositeCost(StageCost):
         for c in self.costs:
             total = total + c.final(x, xref)
         return total
+
+    def stage_residual(self, x, u, dt, xref, uref):
+        parts = [c.stage_residual(x, u, dt, xref, uref) for c in self.costs]
+        return torch.cat(parts, dim=-1) if parts else (x - xref)[..., :0]
+
+    def final_residual(self, x, xref):
+        parts = [c.final_residual(x, xref) for c in self.costs]
+        return torch.cat(parts, dim=-1) if parts else (x - xref)[..., :0]

@@ -7,8 +7,8 @@ the pair (diag blocks D [..., K, nz, nz], upper-off blocks O [..., K-1, nz, nz])
 One solve is sequential over the K stages; here that is a Python loop whose
 body is small dense algebra on the leading (batch) dims. This is the linear
 solver of the non-fused ADMM, the oracle path and the kernels' plain
-versions; on the card the production path runs the same recurrences inside
-the CUDA kernel (``ops/cuda/admm_kernel.py``).
+versions; on the card the production paths run the same recurrences inside
+the CUDA kernels (``ops/cuda/admm_kernel.py``, ``ops/cuda/btridiag_kernel.py``).
 """
 from __future__ import annotations
 

@@ -1,11 +1,16 @@
 """Finite-difference collocation defects.
 
-Counterpart of the JAX package's ``ops/collocation.py``; only the scheme the
-ported configurations use is present. Sign convention as there:
+Counterpart of the JAX package's ``ops/collocation.py``; only the schemes the
+ported configurations use are present. Sign convention as there:
 defect = f(·) − (x2 − x1)/dt. All operands broadcast over leading dims
 (``dt`` is [...], states are [..., nx]).
 """
 from __future__ import annotations
+
+
+def forward_diff_defect(f, x1, u1, x2, dt):
+    """Forward Euler defect: f(x1,u1) − (x2−x1)/dt."""
+    return f(x1, u1) - (x2 - x1) / dt[..., None]
 
 
 def crank_nicolson_defect(f, x1, u1, x2, dt):
@@ -14,12 +19,13 @@ def crank_nicolson_defect(f, x1, u1, x2, dt):
 
 
 FD_COLLOCATIONS = {
+    "forward": forward_diff_defect,
     "crank_nicolson": crank_nicolson_defect,
 }
 
 # schemes of the JAX package that a later slice of the port brings over
 _NOT_YET_PORTED = (
-    "forward", "backward", "midpoint",
+    "backward", "midpoint",
     "hermite_simpson", "hermite_simpson_lc", "hermite_simpson_unc",
 )
 

@@ -35,14 +35,8 @@ the lane's own count.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import pathlib
-import shutil
-import subprocess
-import threading
-from typing import Dict, Tuple
+from typing import Dict
 
 import torch
 
@@ -51,26 +45,27 @@ from control_box_rst_tpu_torch.ops.btridiag import (
     btridiag_solve,
     interval_to_stage,
 )
+from control_box_rst_tpu_torch.ops.cuda import build
+from control_box_rst_tpu_torch.ops.cuda.layout import (
+    from_kernel_layout,
+    lane_tile,
+    padded_lanes,
+    ptr_array,
+    to_kernel_layout,
+)
 from control_box_rst_tpu_torch.ops.smallmat import mm_small_tn, mv_small, mv_small_t
 
 # kernel launches per wrapper (incremented where a kernel is launched, and
 # nowhere else)
 LAUNCHES: Dict[str, int] = {"boxqp_solve": 0, "admm_round": 0}
 
-_PKG_ROOT = pathlib.Path(__file__).resolve().parents[2]
-SOURCE = _PKG_ROOT / "csrc" / "admm_kernel.cu"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
+SOURCE = build.CSRC / "admm_kernel.cu"
 
-# lane layout of the kernels' per-lane arrays: tile-major [ceil(B/T), rows, T]
-# with T = LANE_TILE for batches of at least a warp and T = 1 below that (the
-# two instances csrc/admm_kernel.cu compiles)
-LANE_TILE = 32
 
-_libs: Dict[Tuple[int, int], ctypes.CDLL] = {}
-_build_lock = threading.Lock()
+def build_spec(nz: int, nc: int) -> build.Spec:
+    """(source, defines) of the (nz, nc) specialisation, as
+    ``ops/cuda/build.py`` takes it."""
+    return SOURCE, {"NZ": nz, "NC": nc}
 
 
 def reset_launch_counts() -> None:
@@ -258,79 +253,27 @@ def io_bytes(Kst: int, nz: int, nc: int, B: int, full_solve: bool,
 
 
 # --------------------------------------------------------------------------
-# build + load
+# load (built at first use by ops/cuda/build.py)
 # --------------------------------------------------------------------------
 
-def _find_nvcc() -> str:
-    cands = [shutil.which("nvcc")]
-    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"), "/usr/local/cuda"):
-        if root:
-            cands.append(os.path.join(root, "bin", "nvcc"))
-    for c in cands:
-        if c and os.path.isfile(c) and os.access(c, os.X_OK):
-            return c
-    raise RuntimeError(
-        "nvcc not found (looked on PATH, $CUDA_HOME, $CUDA_PATH, /usr/local/cuda): "
-        "the CUDA kernels are compiled from csrc/ at first use"
-    )
-
-
-def build_dir() -> pathlib.Path:
-    """Where the shared libraries go: ``build/cuda_kernels`` at the root of
-    the checkout."""
-    return _PKG_ROOT.parent / "build" / "cuda_kernels"
-
-
-def build(nz: int, nc: int, verbose: bool = False) -> pathlib.Path:
-    """Compile the (nz, nc) specialisation of ``csrc/admm_kernel.cu`` if its
-    library is not there yet; returns the library's path. The file name
-    carries a hash of source and flags, so an edited source rebuilds."""
-    src = SOURCE.read_bytes()
-    flags = NVCC_FLAGS + (f"-DNZ={nz}", f"-DNC={nc}")
-    tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:12]
-    out_dir = build_dir()
-    out = out_dir / f"libadmm_kernel_nz{nz}_nc{nc}_{tag}.so"
-    if out.exists():
-        return out
-    out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [_find_nvcc(), *flags]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-        )
-    if verbose:
-        print(proc.stdout + proc.stderr, flush=True)
-    os.replace(tmp, out)
-    return out
-
-
 def _load(nz: int, nc: int) -> ctypes.CDLL:
-    key = (nz, nc)
-    with _build_lock:
-        lib = _libs.get(key)
-        if lib is None:
-            lib = ctypes.CDLL(str(build(nz, nc)))
-            c_f, c_i, c_p = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
-            for fn in (lib.admm_kernel_nz, lib.admm_kernel_nc):
-                fn.restype, fn.argtypes = c_i, []
-            lib.admm_round_launch.restype = c_i
-            lib.admm_round_launch.argtypes = [
-                c_p, ctypes.c_longlong, c_i, c_i, c_i, c_i, c_f, c_f, c_f, c_p,
-            ]
-            lib.boxqp_solve_launch.restype = c_i
-            lib.boxqp_solve_launch.argtypes = [
-                c_p, ctypes.c_longlong, c_i, c_i, c_i, c_i, c_i,
-                c_f, c_f, c_f, c_f, c_f, c_f, c_f, c_f, c_p,
-            ]
-            if (lib.admm_kernel_nz(), lib.admm_kernel_nc()) != key:
-                raise RuntimeError(f"library built for another (nz, nc) than {key}")
-            _libs[key] = lib
-    return lib
+    def declare(lib):
+        c_f, c_i, c_p = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
+        for fn in (lib.admm_kernel_nz, lib.admm_kernel_nc):
+            fn.restype, fn.argtypes = c_i, []
+        lib.admm_round_launch.restype = c_i
+        lib.admm_round_launch.argtypes = [
+            c_p, ctypes.c_longlong, c_i, c_i, c_i, c_i, c_f, c_f, c_f, c_p,
+        ]
+        lib.boxqp_solve_launch.restype = c_i
+        lib.boxqp_solve_launch.argtypes = [
+            c_p, ctypes.c_longlong, c_i, c_i, c_i, c_i, c_i,
+            c_f, c_f, c_f, c_f, c_f, c_f, c_f, c_f, c_p,
+        ]
+        if (lib.admm_kernel_nz(), lib.admm_kernel_nc()) != (nz, nc):
+            raise RuntimeError(f"library built for another (nz, nc) than {(nz, nc)}")
+
+    return build.load(*build_spec(nz, nc), declare)
 
 
 # --------------------------------------------------------------------------
@@ -378,45 +321,6 @@ def _check_cuda_args(args):
             raise TypeError(f"{name}: the CUDA kernels take float32, got {a.dtype}")
 
 
-def _lane_tile(B: int) -> int:
-    """Tile width of a batch: a warp's worth of lanes, or 1 when the batch is
-    smaller than that (each lane's arrays contiguous — the single-solve case)."""
-    return LANE_TILE if B >= LANE_TILE else 1
-
-
-def _padded_lanes(B: int) -> int:
-    T = _lane_tile(B)
-    return -(-B // T) * T
-
-
-def _to_kernel_layout(a: torch.Tensor) -> torch.Tensor:
-    """[B, ...] → a fresh contiguous copy in the kernels' lane layout
-    [ceil(B/T), rows, T]. The unused lanes of a ragged last tile are
-    allocated and left uninitialised: no thread reads or computes them."""
-    B, T = a.shape[0], _lane_tile(a.shape[0])
-    a = a.reshape(B, -1)
-    rows, full = a.shape[1], B // T
-    out = a.new_empty((_padded_lanes(B) // T, rows, T))
-    if full:
-        out[:full].transpose(1, 2).copy_(a[: full * T].reshape(full, T, rows))
-    if full * T != B:
-        out[full, :, : B - full * T].copy_(a[full * T:].t())
-    return out
-
-
-def _from_kernel_layout(a: torch.Tensor, shape) -> torch.Tensor:
-    """Inverse of ``_to_kernel_layout`` for an array of [B, ...] ``shape``."""
-    B, T = shape[0], _lane_tile(shape[0])
-    a = a.view(_padded_lanes(B) // T, -1, T)
-    rows, full = a.shape[1], B // T
-    out = a.new_empty((B, rows))
-    if full:
-        out[: full * T].view(full, T, rows).copy_(a[:full].transpose(1, 2))
-    if full * T != B:
-        out[full * T:].copy_(a[full, :, : B - full * T].t())
-    return out.view(shape)
-
-
 def _lane_invariant(*arrays: torch.Tensor) -> bool:
     """True when every array is one copy broadcast over the batch (stride 0
     on dim 0, as ``expand`` makes it): the kernels then read a single shared
@@ -430,13 +334,9 @@ def _kernel_operands(args):
     shared = _lane_invariant(*args[:3])
     head = (
         [a[0].reshape(-1).contiguous() for a in args[:3]] if shared
-        else [_to_kernel_layout(a) for a in args[:3]]
+        else [to_kernel_layout(a) for a in args[:3]]
     )
-    return head + [_to_kernel_layout(a) for a in args[3:]], shared
-
-
-def _ptr_array(tensors):
-    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+    return head + [to_kernel_layout(a) for a in args[3:]], shared
 
 
 def admm_round(
@@ -459,12 +359,12 @@ def admm_round(
     with torch.cuda.device(Hd.device):
         t, shared = _kernel_operands(args)
         new = lambda rows: torch.empty(
-            (rows * _padded_lanes(B),), dtype=torch.float32, device=Hd.device)
+            (rows * padded_lanes(B),), dtype=torch.float32, device=Hd.device)
         Ld, Lo, xt = new(Kst * ntri), new(N * nz * nz), new(Kst * nz)
         pr, dr = (torch.empty((B,), dtype=torch.float32, device=Hd.device) for _ in range(2))
-        ptrs = _ptr_array(t + [Ld, Lo, xt, pr, dr])
+        ptrs = ptr_array(t + [Ld, Lo, xt, pr, dr])
         err = lib.admm_round_launch(
-            ptrs, B, Kst, _lane_tile(B), int(shared), int(iters), float(sigma),
+            ptrs, B, Kst, lane_tile(B), int(shared), int(iters), float(sigma),
             float(alpha),
             float(rho_eq_scale), torch.cuda.current_stream().cuda_stream,
         )
@@ -472,8 +372,8 @@ def admm_round(
     if err != 0:
         raise RuntimeError(f"admm_round_kernel launch failed: CUDA error {err}")
     return (
-        _from_kernel_layout(t[8], x.shape), _from_kernel_layout(t[9], z_b.shape),
-        _from_kernel_layout(t[10], y_d.shape), _from_kernel_layout(t[11], y_b.shape),
+        from_kernel_layout(t[8], x.shape), from_kernel_layout(t[9], z_b.shape),
+        from_kernel_layout(t[10], y_d.shape), from_kernel_layout(t[11], y_b.shape),
         pr, dr,
     )
 
@@ -505,20 +405,20 @@ def boxqp_solve(
     with torch.cuda.device(Hd.device):
         t, shared = _kernel_operands(args)  # g, c copies double as g_s, c_s
         new = lambda rows: torch.empty(
-            (rows * _padded_lanes(B),), dtype=torch.float32, device=Hd.device)
+            (rows * padded_lanes(B),), dtype=torch.float32, device=Hd.device)
         Ld, Lo, xt = new(Kst * ntri), new(N * nz * nz), new(Kst * nz)
         pr, dr, it = (torch.empty((B,), dtype=torch.float32, device=Hd.device) for _ in range(3))
         xtot = torch.zeros_like(xt)
-        ptrs = _ptr_array(t + [Ld, Lo, xt, pr, dr, xtot, it])
+        ptrs = ptr_array(t + [Ld, Lo, xt, pr, dr, xtot, it])
         err = lib.boxqp_solve_launch(
-            ptrs, B, Kst, _lane_tile(B), int(shared), *scal,
+            ptrs, B, Kst, lane_tile(B), int(shared), *scal,
             torch.cuda.current_stream().cuda_stream,
         )
         LAUNCHES["boxqp_solve"] += 1
     if err != 0:
         raise RuntimeError(f"boxqp_solve_kernel launch failed: CUDA error {err}")
     return (
-        _from_kernel_layout(xtot, x.shape), _from_kernel_layout(t[9], z_b.shape),
-        _from_kernel_layout(t[10], y_d.shape), _from_kernel_layout(t[11], y_b.shape),
+        from_kernel_layout(xtot, x.shape), from_kernel_layout(t[9], z_b.shape),
+        from_kernel_layout(t[10], y_d.shape), from_kernel_layout(t[11], y_b.shape),
         pr, dr, it,
     )

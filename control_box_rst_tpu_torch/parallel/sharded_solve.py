@@ -13,6 +13,7 @@ import torch
 
 from control_box_rst_tpu_torch.ocp.problem import Trajectory
 from control_box_rst_tpu_torch.ocp.transcribe import TranscribedOCP
+from control_box_rst_tpu_torch.solvers.lm import LMConfig, lm_solve
 from control_box_rst_tpu_torch.solvers.sqp import SQPConfig, hoist_structure, sqp_solve
 from control_box_rst_tpu_torch.utils.precision import resolve_device, resolve_dtype
 
@@ -60,5 +61,37 @@ def make_batched_solver(
         traj0 = Trajectory.linear_interp(x0s, xf, N, nu, dt_init)
         res = sqp_solve(o, traj0, cfg, hoisted=hoisted)
         return res.traj.U, res.objective, res.status, res.iterations
+
+    return solve
+
+
+def make_batched_lm_solver(
+    ocp: TranscribedOCP,
+    cfg: Optional[LMConfig] = None,
+    dt_init: float = 0.1,
+    device=None,
+    dtype=None,
+    inplace: bool = True,
+):
+    """Returns fn x0s [B, nx] → (U [B, N, nu], chi2, status, iterations,
+    feas_res): the batched Levenberg-Marquardt solve from the straight-line
+    initial guess, every lane with its own μ, penalty weights and iteration
+    count. ``device`` and ``dtype`` as in ``make_batched_solver``. ``inplace``
+    selects which of the two block-tridiagonal kernels solves the linear
+    system of an iteration on the card (``ops/cuda/btridiag_kernel.py``);
+    the answer does not depend on it."""
+    device = resolve_device(device)
+    dtype = resolve_dtype(dtype)
+    cfg = cfg or LMConfig()
+    ocp = ocp.to(device=device, dtype=dtype)
+    N, nu = ocp.N, ocp.nu
+    xf = ocp.bc.xf if ocp.bc.xf is not None else ocp.refs.xref[-1]
+
+    def solve(x0s):
+        x0s = torch.as_tensor(x0s).to(device=device, dtype=dtype)
+        o = ocp.replace(bc=ocp.bc.replace(x0=x0s))
+        traj0 = Trajectory.linear_interp(x0s, xf, N, nu, dt_init)
+        res = lm_solve(o, traj0, cfg, inplace=inplace)
+        return res.traj.U, res.chi2, res.status, res.iterations, res.feas_res
 
     return solve

@@ -22,6 +22,7 @@ import torch
 
 from control_box_rst_tpu.solvers import stage_qp as jqp
 from control_box_rst_tpu_torch.ops.cuda import admm_kernel as ak
+from control_box_rst_tpu_torch.ops.cuda import layout
 from control_box_rst_tpu_torch.solvers import stage_qp as tqp
 
 from torch_port_util import kernel_args_np, random_qp_batch_np, to_np
@@ -161,27 +162,27 @@ def test_work_counts_scale_with_the_loops():
 @pytest.mark.parametrize("B", [1, 31, 32, 70])
 def test_kernel_lane_layout_round_trip_and_addressing(B):
     """The layout the wrappers hand to the CUDA kernels (Python the CPU tests
-    can reach): element (idx, lane) sits where csrc/admm_kernel.cu's
-    lane_offset() looks for it, ragged last tiles included."""
-    T, rows = ak._lane_tile(B), 15
+    can reach): element (idx, lane) sits where lane_offset() of the csrc/*.cu
+    sources looks for it, ragged last tiles included."""
+    T, rows = layout.lane_tile(B), 15
     assert T == (32 if B >= 32 else 1)
     a = torch.randn(B, 5, 3)
-    k = ak._to_kernel_layout(a)
-    assert k.is_contiguous() and k.numel() == rows * ak._padded_lanes(B)
+    k = layout.to_kernel_layout(a)
+    assert k.is_contiguous() and k.numel() == rows * layout.padded_lanes(B)
     flat, a2 = k.reshape(-1), a.reshape(B, rows)
     for lane in {0, B // 2, B - 1}:
         for idx in (0, 7, rows - 1):
             assert flat[(lane // T * rows + idx) * T + lane % T] == a2[lane, idx]
-    assert torch.equal(ak._from_kernel_layout(k, a.shape), a)
+    assert torch.equal(layout.from_kernel_layout(k, a.shape), a)
 
 
 def test_lane_invariant_structure_is_passed_once():
     _, _, at = _args()
     ops, shared = ak._kernel_operands(at)
-    assert not shared and ops[1].numel() == at[1][0].numel() * ak._padded_lanes(len(SEEDS))
+    assert not shared and ops[1].numel() == at[1][0].numel() * layout.padded_lanes(len(SEEDS))
     ex = [a[0].expand(a.shape) for a in at[:3]] + list(at[3:])
     ops, shared = ak._kernel_operands(ex)
     assert shared
     for o, a in zip(ops[:3], at[:3]):
         assert torch.equal(o, a[0].reshape(-1))
-    assert ops[3].numel() == at[3][0].numel() * ak._padded_lanes(len(SEEDS))
+    assert ops[3].numel() == at[3][0].numel() * layout.padded_lanes(len(SEEDS))

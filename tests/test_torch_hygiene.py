@@ -17,6 +17,7 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "control_box_rst_tpu_torch"
 SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+CUDA_SOURCES = sorted((PKG / "csrc").glob("*.cu"))
 FORBIDDEN = ("jax", "jaxlib", "control_box_rst_tpu", "triton")
 
 
@@ -36,14 +37,35 @@ def test_module_imports_no_jax(path):
     assert not bad, f"{path}: forbidden imports {bad}"
 
 
+@pytest.mark.parametrize("path", CUDA_SOURCES, ids=lambda p: p.name)
+def test_cuda_source_has_a_plain_c_interface(path):
+    """A kernel source is bound with ctypes: it includes the CUDA runtime's
+    headers only (no PyTorch, no library of finished kernels), exports
+    ``extern "C"`` entry points that return ``cudaGetLastError()``, targets
+    no fast-math, and says which TPU kernel it replaces."""
+    import re
+
+    text = path.read_text()
+    includes = re.findall(r'#include\s*[<"]([^>"]+)[>"]', text)
+    assert includes and set(includes) <= {"cuda_runtime.h", "math_constants.h"}, includes
+    assert 'extern "C"' in text and "cudaGetLastError()" in text
+    assert "control_box_rst_tpu/ops/pallas/" in text
+    assert "<<<" in text and "__global__" in text
+    wrapper = PKG / "ops" / "cuda" / (path.stem + ".py")
+    assert wrapper.is_file() and f'"{path.name}"' in wrapper.read_text()
+
+
 def test_every_listed_module_exists():
+    assert [p.name for p in CUDA_SOURCES] == ["admm_kernel.cu", "btridiag_kernel.cu"]
     for rel in (
         "utils/tree.py", "utils/precision.py", "core/types.py", "ops/smallmat.py",
         "ops/btridiag.py", "ops/collocation.py", "ops/cuda/admm_kernel.py",
-        "csrc/admm_kernel.cu", "models/base.py", "models/benchmark.py",
+        "ops/cuda/btridiag_kernel.py", "ops/cuda/build.py", "ops/cuda/layout.py",
+        "csrc/admm_kernel.cu", "csrc/btridiag_kernel.cu",
+        "models/base.py", "models/benchmark.py",
         "ocp/problem.py", "ocp/grids.py", "ocp/costs.py", "ocp/transcribe.py",
-        "solvers/stage_qp.py", "solvers/sqp.py", "parallel/sharded_solve.py",
-        "entry.py", "convert.py",
+        "solvers/stage_qp.py", "solvers/sqp.py", "solvers/lm.py",
+        "parallel/sharded_solve.py", "entry.py", "convert.py",
     ):
         assert (PKG / rel).is_file(), rel
 
@@ -71,8 +93,8 @@ def test_package_imports_in_a_fresh_process_without_jax():
 
 
 def test_entry_points_refuse_the_cpu_unless_asked():
-    from control_box_rst_tpu_torch.entry import entry, flagship
-    from control_box_rst_tpu_torch.parallel import make_batched_solver
+    from control_box_rst_tpu_torch.entry import entry, flagship, flagship_lm
+    from control_box_rst_tpu_torch.parallel import make_batched_lm_solver, make_batched_solver
     from control_box_rst_tpu_torch.utils.precision import resolve_device, resolve_dtype
 
     if torch.cuda.is_available():
@@ -80,6 +102,10 @@ def test_entry_points_refuse_the_cpu_unless_asked():
     ocp, cfg = flagship(N=4, device="cpu")
     with pytest.raises(RuntimeError):
         make_batched_solver(ocp, cfg, device=None)
+    with pytest.raises(RuntimeError):
+        flagship_lm(N=4)
+    with pytest.raises(RuntimeError):
+        make_batched_lm_solver(*flagship_lm(N=4, device="cpu"), device=None)
     with pytest.raises(RuntimeError):
         entry()
     with pytest.raises(RuntimeError):
@@ -146,6 +172,24 @@ def test_entry_runs_on_cpu_when_asked():
     U = fn(x0s[:2])
     assert U.shape == (2, 50, 1) and bool(torch.isfinite(U).all())
     assert float(U.abs().max()) <= 1.0 + 1e-4
+
+
+def test_a_missing_compiler_raises():
+    """No nvcc here: asking for a kernel library raises (and a CUDA tensor
+    would therefore raise in the wrappers); nothing falls back."""
+    import shutil
+
+    from control_box_rst_tpu_torch.ops.cuda import admm_kernel, btridiag_kernel, build
+
+    if shutil.which("nvcc") or (pathlib.Path("/usr/local/cuda/bin/nvcc")).exists():
+        pytest.skip("a CUDA compiler is present")
+    for spec in (admm_kernel.build_spec(4, 2), btridiag_kernel.build_spec(4)):
+        assert spec[0].is_file()
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            build.build(*spec)
+    a, b = build.library_path(*btridiag_kernel.build_spec(4)), build.library_path(
+        *btridiag_kernel.build_spec(3))
+    assert a != b and a.parent == build.build_dir() and "nz4" in a.name
 
 
 def test_chip_smoke_fails_without_a_card():

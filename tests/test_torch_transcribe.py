@@ -204,7 +204,7 @@ def test_unported_structure_is_refused():
     for grid in (
         Grid(N=N, kind="ms"),
         Grid(N=N, dt_mode="single"),
-        Grid(N=N, fd_scheme="forward"),
+        Grid(N=N, fd_scheme="backward"),
         Grid(N=N, u_blocks=tuple(range(N))),
     ):
         with pytest.raises(NotImplementedError):

@@ -69,17 +69,19 @@ def jax_flagship(N, dtype, cost_integration="left_sum", integral=False):
 
 
 def spec_from_jax_ocp(ocp):
-    """numpy dict of a JAX config-1-style TranscribedOCP, the form
+    """numpy dict of a JAX config-1-style TranscribedOCP (quadratic stage
+    cost, alone or composed with a quadratic terminal cost), the form
     ``convert.ocp_from_numpy`` reads."""
-    form, final = ocp.cost.costs
+    form, final = ocp.cost.costs if hasattr(ocp.cost, "costs") else (ocp.cost, None)
     opt = lambda a: None if a is None else np.asarray(a)
     return dict(
         N=ocp.grid.N, nx=ocp.nx, nu=ocp.nu, system="serial_integrators",
         time_constant=float(ocp.system.time_constant),
         grid_kind=ocp.grid.kind, fd_scheme=ocp.grid.fd_scheme,
         cost_integration=ocp.grid.cost_integration, dt_mode=ocp.grid.dt_mode,
-        cost_integral=bool(ocp.cost.integral),
-        Q=np.asarray(form.Q), R=np.asarray(form.R), Qf=np.asarray(final.Qf),
+        cost_integral=bool(ocp.cost.integral), lsq_form=bool(form.lsq_form),
+        Q=np.asarray(form.Q), R=np.asarray(form.R),
+        Qf=None if final is None else np.asarray(final.Qf),
         x_lb=np.asarray(ocp.bounds.x_lb), x_ub=np.asarray(ocp.bounds.x_ub),
         u_lb=np.asarray(ocp.bounds.u_lb), u_ub=np.asarray(ocp.bounds.u_ub),
         dt_lb=np.asarray(ocp.bounds.dt_lb), dt_ub=np.asarray(ocp.bounds.dt_ub),
