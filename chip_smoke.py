@@ -17,18 +17,27 @@ Phases
   2 build    compile csrc/*.cu with nvcc, one process per source, started
              together (seconds)
   3 kernels  box-QP ADMM kernels vs plain version at flagship shapes (Kst=51,
-             nz=4, nc=2): 256 lanes of well-conditioned random QPs against the
-             stated tolerances, 256 lanes of config-1 QPs built by the port
-             against the float64 plain version, then the main path's batch for
-             the production exits, the warm-started round of the outer SQP
-             iteration, times and roofline bounds.
+             nz=4, nc=2): the reciprocal-based quotient of the kernels against
+             the division, bit for bit, on random operands; 256 lanes of
+             well-conditioned random QPs against the stated tolerances (B=1,
+             B=8 and per-lane Hd/J/K give the same bits; so do B=1 and B=8
+             through the one-thread-per-lane kernels), 256 lanes of
+             config-1 QPs built by the port against the float64 plain version,
+             a horizon too long for shared memory (Kst=1001: the shape rule
+             picks the one-thread-per-lane kernels), then the main path's
+             batch for the production exits, the warm-started round of the
+             outer SQP iteration, the shared-memory kernels against the
+             one-thread-per-lane kernels on the same inputs, times and
+             roofline bounds.
              Block-tridiagonal factor-and-solve kernels (three sweeps; two
-             sweeps in place) vs plain version at K=51, nz=4, B=32768: random
-             SPD systems (atol 5e-6), the damped Gauss-Newton systems of LM's
-             first and of a late iteration on the config-1 batch (as close to
-             the float64 plain version as the float32 plain version), B=1 and
-             a batch not divisible by 32, the two kernels against each other,
-             times, bounds and the dense library call as a yardstick
+             sweeps, factor kept on chip) vs plain version at K=51, nz=4,
+             B=32768: random SPD systems (atol 5e-6), the damped Gauss-Newton
+             systems of LM's first and of a late iteration on the config-1
+             batch (as close to the float64 plain version as the float32
+             plain version), B=1, B=8 (every kernel, the one-thread-per-lane
+             two-sweep kernel included) and a batch not divisible by 32,
+             K=1001 (the shape rule), the kernels against each other, times,
+             bounds and the dense library call as a yardstick
   4 main     the batched SQP solve; gates: converged fraction >= 0.99, max
              |U - U_oracle| <= 1e-3 on the first 64 lanes (f64 oracle golden
              file), kernel launch counter > 0; solves/s, mean SQP iterations,
@@ -37,11 +46,20 @@ Phases
              converged fraction >= 0.99, launch counter > 0, and on the first
              64 lanes U and chi2 as close to the f64 LM golden file as the
              reference's own float32 LM (stored in that file); then the same
-             batch through the three-sweep kernel, which must give the same U
+             batch through the three-sweep kernel, held to the same gates
+             (float32 LM is path-dependent: a bit of difference in a step can
+             flip an accept test, so the two passes are not held to each
+             other; their difference is reported)
   6 result   one JSON line with every kernel's record, then the contract line
 
-Output: progress lines, then a ``{"main": ...}`` line, a ``{"lm": ...}`` line,
-the nvidia-smi line, a ``{"kernels": [...]}`` line, and as the last line
+Output: progress lines (with ``--profile`` a ``{"profile": ...}`` line with the
+device time by kernel and the hand-written kernels launch by launch, and a
+``{"kernels_alone_ms": ...}`` line with every kernel, old and new, by itself),
+then a ``{"main": ...}`` line, a ``{"lm": ...}`` line, the nvidia-smi line, a
+``{"kernels": [...]}`` line (per kernel the contract's keys and, where a
+kernel was redesigned, ``earlier_ms`` / ``vs_earlier``: the kernel it replaced
+on the same inputs, and ``launch``: route, shared memory per lane, resident
+lanes per SM, registers per thread), and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -67,6 +85,8 @@ KERNEL_REPS = 3    # launches per kernel timing
 TRIALS, REPS = 3, 2  # SQP path: best of TRIALS windows of REPS solves
 LM_TRIALS = 2      # LM path: best of LM_TRIALS single batches
 LM_LATE_ITERATION = 15  # the "late" LM iteration whose linear system is checked
+LONG_KST = 1001   # a horizon whose lane state does not fit shared memory
+LONG_BATCH = 128  # lanes of the long-horizon checks
 CONV_GATE = 0.99
 ERR_GATE = 1e-3
 # published peaks of one H100 SXM (NVIDIA data sheet): the roofline yardstick
@@ -182,6 +202,41 @@ def as_f64(args):
     return [a.double() for a in args]
 
 
+def all_equal(outs_a, outs_b) -> bool:
+    return all(torch.equal(a, b) for a, b in zip(outs_a, outs_b))
+
+
+def check_quotient(ak, nz: int, nc: int, n: int = 1 << 24) -> int:
+    """The kernels' quotient from a reciprocal against the division itself, bit
+    for bit, on `n` operand pairs from a seed: mantissas uniform, exponents
+    uniform in 2^-100..2^100 (inside and outside the fast window), with zeros
+    of both signs, infinities and NaNs mixed in, and divisors also negative,
+    zero, subnormal. Returns the number of pairs checked; raises on the first
+    difference."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    def operands():
+        mant = 1.0 + torch.rand(n, generator=g, device="cuda")
+        expo = torch.randint(-100, 101, (n,), generator=g, device="cuda").float()
+        sign = torch.where(torch.rand(n, generator=g, device="cuda") < 0.5, -1.0, 1.0)
+        return sign * mant * torch.exp2(expo)
+    a, b = operands(), operands().abs()
+    special = torch.tensor(
+        [0.0, -0.0, float("inf"), -float("inf"), float("nan"), 1e-42, -1e-42, 3.0, -1.5],
+        device="cuda")
+    a[: special.numel() * 64] = special.repeat(64)
+    b[-special.numel() * 64:] = special.repeat_interleave(64)
+    a[-special.numel() * 64:] = special.repeat(64)
+    bad = ak.division_mismatches(a, b, nz, nc)
+    torch.cuda.synchronize()
+    n_bad = int(bad.sum())
+    if n_bad:
+        i = int(bad.nonzero()[0])
+        raise AssertionError(
+            f"quotient from the reciprocal differs from the division on {n_bad} of {n} "
+            f"pairs, first a={float(a[i])!r} b={float(b[i])!r}")
+    return n
+
+
 def assert_as_close_as_plain(name, kern, plain, truth, slack=2.0, floor=1e-5):
     """The kernel may be as far from the float64 result as the float32 plain
     version is (times `slack`, plus `floor`), and no farther."""
@@ -222,6 +277,14 @@ def phase_kernels(ocp, cfg, x0s_all, small_b: int, reps: int):
     d5 = {k: 5 * v for k, v in DUAL_TOL.items()}
     Kst, nz, nc = ocp.N + 1, ocp.nz, ocp.nc
     errs = {}
+    info = lambda name: dict(ak.LAUNCH_INFO[name])
+
+    def expect_route(name, route):
+        if info(name).get("route") != route:
+            raise AssertionError(f"{name}: expected route {route!r}, took {info(name)}")
+
+    # ---- the quotient the shared-memory kernels build from a reciprocal ----
+    errs["quotient_pairs_bit_equal"] = check_quotient(ak, nz, nc)
 
     # ---- random QPs, 256 lanes: kernel vs float32 plain version ----
     args = random_qps(small_b, Kst, nz, nc, 0.1, x0s_all.device)
@@ -235,6 +298,17 @@ def phase_kernels(ocp, cfg, x0s_all, small_b: int, reps: int):
         assert_close(f"admm_round iters={it_n} y_b", out_k[3], out_p[3], **DUAL_TOL)
         assert_close(f"admm_round iters={it_n} pr", out_k[4], out_p[4], rtol=1e-2, atol=1e-4)
         errs[f"random/admm_round_iters{it_n}_x"] = e
+        # the one-thread-per-lane kernel (the route of long horizons), and its
+        # instance for fewer lanes than a warp: the same bits
+        out_t = ak.admm_round(*args, iters=it_n, **base, route="thread")
+        out_8 = ak.admm_round(*[a[:8] for a in args], iters=it_n, **base, route="thread")
+        torch.cuda.synchronize()
+        if info("admm_round").get("lane_tile") != 1:
+            raise AssertionError(f"admm_round B=8 thread route took {info('admm_round')}")
+        assert_close(f"admm_round iters={it_n} thread x", out_t[0], out_p[0], **X_TOL)
+        assert_close(f"admm_round iters={it_n} thread y_d", out_t[2], out_p[2], **DUAL_TOL)
+        if not all_equal(out_8, [o[:8] for o in out_t]):
+            raise AssertionError("admm_round thread route: B=8 disagrees with the first lanes")
     # full solve, exits disabled: 4 rounds of fixed work, bounds loosened x5
     # (four rounds of adapted rho compound the roundoff of one)
     out_k = ak.boxqp_solve(*args, **fixed_kw)
@@ -246,12 +320,43 @@ def phase_kernels(ocp, cfg, x0s_all, small_b: int, reps: int):
     assert_close("boxqp_solve fixed y_b", out_k[3], out_p[3], **d5)
     if not bool((out_k[6] == 4 * iters).all()):
         raise AssertionError("boxqp_solve with exits disabled must run every round")
-    # batches smaller than a warp take the kernels' other layout instance
-    # (each lane contiguous); a lane's arithmetic is the same, so are its bits
-    out_8 = ak.boxqp_solve(*[a[:8] for a in args], **fixed_kw)
+    expect_route("boxqp_solve", "smem")
+    # a lane's arithmetic does not depend on the batch around it, so neither do
+    # its bits: B = 1, B = 8 and a batch that leaves teams without a lane
+    for n in (1, 8, small_b - 56):
+        out_n = ak.boxqp_solve(*[a[:n] for a in args], **fixed_kw)
+        torch.cuda.synchronize()
+        if not all_equal(out_n, [o[:n] for o in out_k]):
+            raise AssertionError(f"boxqp_solve: B={n} disagrees with the first lanes of B={small_b}")
+    # ... and a batch of 1000 (teams queue for lanes; a ragged last warp)
+    big = random_qps(1000, Kst, nz, nc, 0.1, x0s_all.device)
+    out_big = ak.boxqp_solve(*big, **fixed_kw)
+    out_sub = ak.boxqp_solve(*[a[:300] for a in big], **fixed_kw)
     torch.cuda.synchronize()
-    if not all(torch.equal(a, b[:8]) for a, b in zip(out_8, out_k)):
-        raise AssertionError("boxqp_solve: the small-batch layout disagrees with the warp-tile layout")
+    if not all_equal(out_sub, [o[:300] for o in out_big]):
+        raise AssertionError("boxqp_solve: B=300 disagrees with the first lanes of B=1000")
+    errs["random/boxqp_solve_fixed4_B1000_x"] = assert_close(
+        "boxqp_solve B=1000 fixed x", out_big[0], ak.boxqp_solve_plain(*big, **fixed_kw)[0], **x5)
+    del big, out_big, out_sub
+    # the one-thread-per-lane kernels run the same statements in the same
+    # order; reported, not gated (the compiler contracts FMAs as it sees fit)
+    out_t = ak.boxqp_solve(*args, **fixed_kw, route="thread")
+    torch.cuda.synchronize()
+    expect_route("boxqp_solve", "thread")
+    errs["random/boxqp_solve_fixed4_smem_vs_thread_x"] = assert_close(
+        "boxqp_solve smem vs thread x", out_k[0], out_t[0], **x5)
+    errs["random/boxqp_solve_fixed4_smem_bit_equal_thread"] = all_equal(out_k, out_t)
+    assert_close("boxqp_solve thread route x", out_t[0], out_p[0], **x5)
+    assert_close("boxqp_solve thread route y_d", out_t[2], out_p[2], **d5)
+    # ... and their instance for fewer lanes than a warp (what a long horizon
+    # takes at B < 32) gives the bits of the full batch's first lanes
+    for n in (1, 8):
+        out_n = ak.boxqp_solve(*[a[:n] for a in args], **fixed_kw, route="thread")
+        torch.cuda.synchronize()
+        if info("boxqp_solve").get("lane_tile") != 1:
+            raise AssertionError(f"boxqp_solve B={n} thread route took {info('boxqp_solve')}")
+        if not all_equal(out_n, [o[:n] for o in out_t]):
+            raise AssertionError(f"boxqp_solve thread route: B={n} disagrees with the first lanes")
 
     # ---- config-1 QPs, 256 lanes: float64 plain version as the yardstick ----
     args = config1_qps(ocp, x0s_all[:small_b])
@@ -277,10 +382,34 @@ def phase_kernels(ocp, cfg, x0s_all, small_b: int, reps: int):
         errs[f"config1/boxqp_solve_fixed4_{nm}"] = [e_k, e_p]
     # Hd, J, K of config 1 are broadcast views, which the kernels read as one
     # shared copy; one copy per lane must give the same bits
+    shared_info = info("boxqp_solve")
     out_c = ak.boxqp_solve(*[a.contiguous() for a in args], **fixed_kw)
     torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(out_k, out_c)):
+    if not shared_info["shared_hjk"] or info("boxqp_solve")["shared_hjk"]:
+        raise AssertionError("boxqp_solve: broadcast Hd/J/K must be passed once, copies per lane")
+    if not all_equal(out_k, out_c):
         raise AssertionError("boxqp_solve: shared and per-lane Hd/J/K disagree")
+    errs["per_lane_hjk_smem_bytes_per_lane"] = info("boxqp_solve")["smem_bytes_per_lane"]
+
+    # ---- the shape rule: a horizon whose state does not fit shared memory ----
+    # takes the one-thread-per-lane kernels (no route is named here)
+    if ak.solve_route(LONG_KST, nz, nc, False) != "thread" or ak.solve_route(Kst, nz, nc, False) != "smem":
+        raise AssertionError("the shape rule does not separate Kst=51 from Kst=1001")
+    long_args = random_qps(LONG_BATCH, LONG_KST, nz, nc, 0.1, x0s_all.device)
+    long_kw = dict(solve_kw, n_rounds=2, iters=3, tol=0.0)
+    out_k = ak.boxqp_solve(*long_args, **long_kw)
+    torch.cuda.synchronize()
+    expect_route("boxqp_solve", "thread")
+    out_p = ak.boxqp_solve_plain(*long_args, **long_kw)
+    errs[f"random/boxqp_solve_Kst{LONG_KST}_x"] = assert_close(
+        f"boxqp_solve Kst={LONG_KST} x", out_k[0], out_p[0], **x5)
+    assert_close(f"boxqp_solve Kst={LONG_KST} y_d", out_k[2], out_p[2], **d5)
+    out_k = ak.admm_round(*long_args, iters=3, **base)
+    torch.cuda.synchronize()
+    expect_route("admm_round", "thread")
+    out_p = ak.admm_round_plain(*long_args, iters=3, **base)
+    assert_close(f"admm_round Kst={LONG_KST} x", out_k[0], out_p[0], **X_TOL)
+    del long_args, out_k, out_p
     log(f"kernels[{small_b} lanes]: " + json.dumps(errs))
 
     # ---- the main path's batch: production exits, times, bounds ----
@@ -314,7 +443,25 @@ def phase_kernels(ocp, cfg, x0s_all, small_b: int, reps: int):
         )
     if not (dx <= 3e-3):
         raise AssertionError(f"boxqp_solve B={B}: max |dx| kernel vs plain {dx:.3e} > 3e-3")
-    ms = time_ms(lambda: ak.boxqp_solve(*args, **prod_kw), reps)
+    expect_route("boxqp_solve", "smem")
+    k1_info = info("boxqp_solve")
+    # the shared-memory kernel against the one-thread-per-lane kernel it
+    # replaced on this path, same inputs, in turns inside this run
+    out_t = ak.boxqp_solve(*args, **prod_kw, route="thread")
+    torch.cuda.synchronize()
+    vs_earlier = dict(
+        max_abs_dx=float((out_k[0] - out_t[0]).abs().max()),
+        same_it_frac=float((out_k[6] == out_t[6]).float().mean()),
+        bit_equal=all_equal(out_k, out_t),
+    )
+    run = {r: (lambda r=r: ak.boxqp_solve(*args, **prod_kw, route=r)) for r in ak.ROUTES}
+    t_thread = time_ms(run["thread"], reps)
+    ms = time_ms(run["smem"], reps)
+    ms = min(ms, time_ms(run["smem"], reps))
+    earlier_ms = min(t_thread, time_ms(run["thread"], reps))
+    one = [a[:1] for a in args]
+    b1_ms = {r: time_ms(lambda r=r: ak.boxqp_solve(*one, **prod_kw, route=r), 20) for r in ak.ROUTES}
+    del out_t
     rounds = float((out_k[6] / iters).sum())  # rounds this run's data needed
     ops = rounds * ak.solve_flops_per_round(Kst, nz, nc, iters, True)
     t_ops = ops / PEAK_FP32_PER_S * 1e3
@@ -327,6 +474,9 @@ def phase_kernels(ocp, cfg, x0s_all, small_b: int, reps: int):
         bound_ms=max(t_ops, t_bytes),
         bound_by="operations" if t_ops >= t_bytes else "bytes",
         library_ms=None, on_main_path=True, batch=B,
+        earlier_ms=earlier_ms, vs_earlier=vs_earlier, launch=k1_info,
+        single_lane_ms=b1_ms["smem"],
+        earlier_single_lane_ms=b1_ms["thread"],
         err_vs_f64=e_k, plain_err_vs_f64=e_p,
         same_it_frac=same_it, mean_rounds=rounds / B,
         max_rounds=float(out_k[6].max()) / iters,
@@ -359,6 +509,10 @@ def phase_kernels(ocp, cfg, x0s_all, small_b: int, reps: int):
             f"plain version by up to {float(d_rounds.max())}")
     records[0]["warm_round_err_vs_f64"] = warm_errs
     records[0]["warm_round_max_abs_err"] = float((w_k[0] - w_p[0]).abs().max())
+    records[0]["warm_round_ms"] = time_ms(lambda: ak.boxqp_solve(*warm_args, **warm_kw), reps)
+    records[0]["earlier_warm_round_ms"] = time_ms(
+        lambda: ak.boxqp_solve(*warm_args, **warm_kw, route="thread"), reps)
+    del warm_args, w_k, w_p, w_d
 
     out_k = ak.admm_round(*args, iters=iters, **base)
     torch.cuda.synchronize()
@@ -371,6 +525,13 @@ def phase_kernels(ocp, cfg, x0s_all, small_b: int, reps: int):
         f"admm_round B={B} x", out_k[0], out_p[0], out_d[0])
     assert_as_close_as_plain(f"admm_round B={B} y_d", out_k[2], out_p[2], out_d[2])
     assert_as_close_as_plain(f"admm_round B={B} y_b", out_k[3], out_p[3], out_d[3])
+    expect_route("admm_round", "smem")
+    k2_info = info("admm_round")
+    out_t = ak.admm_round(*args, iters=iters, **base, route="thread")
+    torch.cuda.synchronize()
+    vs_earlier = dict(
+        max_abs_dx=float((out_k[0] - out_t[0]).abs().max()), bit_equal=all_equal(out_k, out_t))
+    earlier_ms = time_ms(lambda: ak.admm_round(*args, iters=iters, **base, route="thread"), reps)
     ms = time_ms(lambda: ak.admm_round(*args, iters=iters, **base), reps)
     t_ops = B * ak.round_flops(Kst, nz, nc, iters) / PEAK_FP32_PER_S * 1e3
     t_bytes = ak.io_bytes(Kst, nz, nc, B, False, shared_hjk=True) / PEAK_BYTES_PER_S * 1e3
@@ -383,6 +544,7 @@ def phase_kernels(ocp, cfg, x0s_all, small_b: int, reps: int):
         bound_ms=max(t_ops, t_bytes),
         bound_by="operations" if t_ops >= t_bytes else "bytes",
         library_ms=None, on_main_path=False, batch=B,
+        earlier_ms=earlier_ms, vs_earlier=vs_earlier, launch=k2_info,
         err_vs_f64=e_k, plain_err_vs_f64=e_p,
         bound_bytes_ms=t_bytes, bound_ops_ms=t_ops,
     ))
@@ -457,8 +619,10 @@ def dense_library_ms(D, O, b, x_ref, reps):
 
 
 def phase_btridiag_kernels(ocp, lm_cfg, x0s_all, reps: int):
-    """The two block-tridiagonal factor-and-solve kernels against their plain
-    version; returns their records (three-sweep kernel first).
+    """The block-tridiagonal factor-and-solve kernels against their plain
+    version; returns their records (three-sweep kernel first). The two-sweep
+    solve takes its shared-memory kernel at these shapes; the one-thread-per-
+    lane kernel it replaced there is run beside it under its route's name.
 
     On well-conditioned random SPD systems kernel and float32 plain version
     must agree to atol 5e-6 (the bound of the JAX package's own kernel test).
@@ -498,14 +662,33 @@ def phase_btridiag_kernels(ocp, lm_cfg, x0s_all, reps: int):
     if not d34 <= 1e-6:
         raise AssertionError(f"the two block-tridiagonal kernels differ by {d34:.3e} > 1e-6")
     errs["random/three_sweeps_vs_inplace"] = d34
+    name4 = "btridiag_factor_solve_inplace"
+    k4_info = dict(bk.LAUNCH_INFO[name4])
+    if k4_info.get("route") != "smem" or bk.solve_route(K, nz) != "smem":
+        raise AssertionError(f"{name4}: expected the shared-memory route, took {k4_info}")
+    # ---- the shared-memory kernel against the one it replaced on this path ----
+    x_thread = bk.btridiag_factor_solve(D, O, b, route="thread")
+    torch.cuda.synchronize()
+    if bk.LAUNCH_INFO[name4].get("route") != "thread":
+        raise AssertionError(f"{name4}: route='thread' took {bk.LAUNCH_INFO[name4]}")
+    assert_close(f"{name4} thread route", x_thread, x_plain, rtol=0.0, atol=5e-6)
+    vs_earlier = dict(
+        max_abs_dx=float((x_kern[name4] - x_thread).abs().max()),
+        bit_equal=torch.equal(x_kern[name4], x_thread))
     # ---- (iii) B = 1 (the other layout instance) and a ragged last tile ----
-    for n in (1, 1000):
-        for name, fn in solve.items():
+    by_route = dict(solve)
+    by_route[f"{name4}_thread"] = lambda D, O, b: bk.btridiag_factor_solve(D, O, b, route="thread")
+    x_kern[f"{name4}_thread"] = x_thread
+    for n in (1, 8, 1000):
+        for name, fn in by_route.items():
             x_n = fn(D[:n], O[:n], b[:n])
             torch.cuda.synchronize()
             if not torch.equal(x_n, x_kern[name][:n]):
                 errs[f"random/{name}_B{n}"] = assert_close(
                     f"{name} B={n}", x_n, x_plain[:n], rtol=0.0, atol=5e-6)
+        if n < 32 and bk.LAUNCH_INFO[name4] != dict(route="thread", lane_tile=1):
+            raise AssertionError(f"{name4} B={n} thread route took {bk.LAUNCH_INFO[name4]}")
+    del x_thread, x_kern[f"{name4}_thread"]
     # D and O broadcast over the batch (stride 0) are taken as they are
     De, Oe = D[0].expand(D[:64].shape), O[0].expand(O[:64].shape)
     x_b = solve["btridiag_factor_solve_inplace"](De, Oe, b[:64])
@@ -513,14 +696,35 @@ def phase_btridiag_kernels(ocp, lm_cfg, x0s_all, reps: int):
     assert_close("broadcast D/O", x_b, bk.btridiag_factor_solve_plain(De, Oe, b[:64]),
                  rtol=0.0, atol=5e-6)
     # the caller's D and O are not written by the in-place kernel
-    D_before = D[:64].clone()
-    solve["btridiag_factor_solve_inplace"](D[:64], O[:64], b[:64])
+    D_before, O_before = D[:64].clone(), O[:64].clone()
+    for route in bk.ROUTES:
+        bk.btridiag_factor_solve(D[:64], O[:64], b[:64], route=route)
+        torch.cuda.synchronize()
+        if not torch.equal(D[:64], D_before) or not torch.equal(O[:64], O_before):
+            raise AssertionError(f"the in-place solve (route {route}) wrote to the caller's D or O")
+    # lanes a stride apart (every other lane of the batch), taken as they are
+    x_s = solve[name4](D[:128:2], O[:128:2], b[:128:2])
     torch.cuda.synchronize()
-    if not torch.equal(D[:64], D_before):
-        raise AssertionError("the in-place kernel wrote to the caller's D")
+    if not torch.equal(x_s, x_kern[name4][:128:2]):
+        raise AssertionError(f"{name4}: strided lanes disagree with the same lanes of the batch")
+    # ---- the shape rule: a factor too long for shared memory ----
+    if bk.solve_route(LONG_KST, nz) != "thread":
+        raise AssertionError(f"the shape rule keeps K={LONG_KST} in shared memory")
+    Dl, Ol, bl = random_spd_systems(LONG_BATCH, LONG_KST, nz, dev)
+    x_l = solve[name4](Dl, Ol, bl)
+    torch.cuda.synchronize()
+    if bk.LAUNCH_INFO[name4].get("route") != "thread":
+        raise AssertionError(f"{name4} K={LONG_KST}: took {bk.LAUNCH_INFO[name4]}")
+    errs[f"random/{name4}_K{LONG_KST}"] = assert_close(
+        f"{name4} K={LONG_KST}", x_l, bk.btridiag_factor_solve_plain(Dl, Ol, bl), rtol=0.0, atol=5e-6)
+    del Dl, Ol, bl, x_l
 
     # ---- times, bounds, library yardstick (random systems, full batch) ----
     ms = {name: time_ms(lambda fn=fn: fn(D, O, b), reps) for name, fn in solve.items()}
+    earlier_ms = time_ms(lambda: bk.btridiag_factor_solve(D, O, b, route="thread"), reps)
+    ms[name4] = min(ms[name4], time_ms(lambda: solve[name4](D, O, b), reps))
+    earlier_ms = min(earlier_ms, time_ms(
+        lambda: bk.btridiag_factor_solve(D, O, b, route="thread"), reps))
     lib_ms, lib_B = dense_library_ms(D, O, b, x_kern["btridiag_factor_solve_inplace"], 2)
     t_bytes = bk.io_bytes(K, nz, B) / PEAK_BYTES_PER_S * 1e3
     t_ops = B * bk.factor_solve_flops(K, nz) / PEAK_FP32_PER_S * 1e3
@@ -552,16 +756,19 @@ def phase_btridiag_kernels(ocp, lm_cfg, x0s_all, reps: int):
         "btridiag_factor_solve": "control_box_rst_tpu/ops/pallas/btridiag_kernel.py:194",
         "btridiag_factor_solve_inplace": "control_box_rst_tpu/ops/pallas/btridiag_kernel_v2.py:147",
     }
-    return [dict(
+    records = [dict(
         name=name, route="cuda",
         source="control_box_rst_tpu_torch/csrc/btridiag_kernel.cu",
         replaces=replaces[name], launches=0, max_abs_err=max_err[name],
         ms=ms[name], plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
         bound_by="operations" if t_ops >= t_bytes else "bytes",
         library_ms=lib_ms, library_batch=lib_B, on_main_path=True, batch=B,
+        earlier_ms=None, launch=dict(route="thread"),
         bound_bytes_ms=t_bytes, bound_ops_ms=t_ops,
         three_sweeps_vs_inplace=d34, lm_systems=lm_errs[name],
     ) for name in solve]
+    records[1].update(earlier_ms=earlier_ms, vs_earlier=vs_earlier, launch=k4_info)
+    return records
 
 
 def phase_main(ocp, cfg, x0s_np, trials: int, reps: int):
@@ -593,6 +800,10 @@ def phase_main(ocp, cfg, x0s_np, trials: int, reps: int):
     u_err = float(np.max(np.abs(U[:n_g].double().cpu().numpy() - gold["U"])))
     if launches["boxqp_solve"] <= 0:
         raise AssertionError("main path did not launch the boxqp_solve kernel")
+    route = dict(ak.LAUNCH_INFO["boxqp_solve"])
+    log(f"main path: boxqp_solve launched {launches['boxqp_solve']} time(s), last launch {route}")
+    if route.get("route") != "smem":
+        raise AssertionError(f"main path: boxqp_solve took {route}, not the shared-memory kernel")
     if conv < CONV_GATE:
         raise AssertionError(f"converged_frac {conv:.4f} < {CONV_GATE}")
     if not (u_err <= ERR_GATE):
@@ -622,10 +833,42 @@ def phase_main(ocp, cfg, x0s_np, trials: int, reps: int):
         converged_frac=conv, max_u_err_vs_f64_oracle=u_err,
         mean_sqp_iters=float(iters.float().mean()),
         max_sqp_iters=int(iters.max()),
-        launches=launches, peak_device_memory_gib=peak_gb,
+        launches=launches, kernel_route=route["route"], peak_device_memory_gib=peak_gb,
         p99_single_solve_ms=float(np.percentile(np.asarray(lats), 99) * 1e3),
         p50_single_solve_ms=float(np.percentile(np.asarray(lats), 50) * 1e3),
     )
+
+
+def lm_quality(label, U, chi2, x0s_np):
+    """The LM gate against the float64 golden file (see ``phase_lm``): returns
+    the quality record of one pass, raises where it misses the gate."""
+    gold = np.load(LM_GOLDEN)
+    n_g = gold["U"].shape[0]
+    if not np.array_equal(gold["x0s"], x0s_np[:n_g]):
+        raise AssertionError("LM golden file was made for other initial states")
+    lane_err = lambda u: np.abs(u - gold["U"]).max(axis=(1, 2))
+    chi_gap = lambda c: np.abs(c - gold["chi2"]) / (1.0 + gold["chi2"])
+    e_port, e_ref = lane_err(U[:n_g].double().cpu().numpy()), lane_err(gold["U_f32"])
+    c_port, c_ref = chi_gap(chi2[:n_g].double().cpu().numpy()), chi_gap(gold["chi2_f32"])
+    c_port = c_port[np.isfinite(c_port)]  # inf: a lane whose weights grew last
+    quality = dict(
+        u_err_median=float(np.median(e_port)), u_err_mean=float(e_port.mean()),
+        u_err_max=float(e_port.max()), lanes_above_1e3=int((e_port > 1e-3).sum()),
+        ref_f32_u_err_median=float(np.median(e_ref)), ref_f32_u_err_mean=float(e_ref.mean()),
+        ref_f32_u_err_max=float(e_ref.max()), ref_f32_lanes_above_1e3=int((e_ref > 1e-3).sum()),
+        chi2_gap_mean=float(c_port.mean()), chi2_gap_max=float(c_port.max()),
+        ref_f32_chi2_gap_mean=float(c_ref.mean()), ref_f32_chi2_gap_max=float(c_ref.max()),
+    )
+    log(f"lm quality vs f64 golden ({label}): " + json.dumps(quality))
+    for key in ("u_err_mean", "u_err_max", "chi2_gap_mean", "chi2_gap_max"):
+        if not quality[key] <= 2.0 * quality["ref_f32_" + key] + 1e-3:
+            raise AssertionError(
+                f"LM ({label}) {key} {quality[key]:.3e} > 2 x the reference's float32 "
+                f"{quality['ref_f32_' + key]:.3e} + 1e-3")
+    if not quality["u_err_median"] <= ERR_GATE:
+        raise AssertionError(
+            f"LM ({label}) median |U - U_golden| {quality['u_err_median']:.3e} > {ERR_GATE}")
+    return quality
 
 
 def phase_lm(ocp, cfg, x0s_np, trials: int):
@@ -668,34 +911,15 @@ def phase_lm(ocp, cfg, x0s_np, trials: int):
     conv = float((status == 1).float().mean())
     if launches["btridiag_factor_solve_inplace"] <= 0 or launches["btridiag_factor_solve"] != 0:
         raise AssertionError(f"LM path: unexpected kernel launches {launches}")
+    route = dict(bk.LAUNCH_INFO["btridiag_factor_solve_inplace"])
+    log(f"LM path: btridiag_factor_solve_inplace launched "
+        f"{launches['btridiag_factor_solve_inplace']} time(s), last launch {route}")
+    if route.get("route") != "smem":
+        raise AssertionError(f"LM path: the in-place solve took {route}, not the shared-memory kernel")
     if conv < CONV_GATE:
         raise AssertionError(f"LM converged_frac {conv:.4f} < {CONV_GATE}")
 
-    gold = np.load(LM_GOLDEN)
-    n_g = gold["U"].shape[0]
-    if not np.array_equal(gold["x0s"], x0s_np[:n_g]):
-        raise AssertionError("LM golden file was made for other initial states")
-    lane_err = lambda u: np.abs(u - gold["U"]).max(axis=(1, 2))
-    chi_gap = lambda c: np.abs(c - gold["chi2"]) / (1.0 + gold["chi2"])
-    e_port, e_ref = lane_err(U[:n_g].double().cpu().numpy()), lane_err(gold["U_f32"])
-    c_port, c_ref = chi_gap(chi2[:n_g].double().cpu().numpy()), chi_gap(gold["chi2_f32"])
-    c_port = c_port[np.isfinite(c_port)]  # inf: a lane whose weights grew last
-    quality = dict(
-        u_err_median=float(np.median(e_port)), u_err_mean=float(e_port.mean()),
-        u_err_max=float(e_port.max()), lanes_above_1e3=int((e_port > 1e-3).sum()),
-        ref_f32_u_err_median=float(np.median(e_ref)), ref_f32_u_err_mean=float(e_ref.mean()),
-        ref_f32_u_err_max=float(e_ref.max()), ref_f32_lanes_above_1e3=int((e_ref > 1e-3).sum()),
-        chi2_gap_mean=float(c_port.mean()), chi2_gap_max=float(c_port.max()),
-        ref_f32_chi2_gap_mean=float(c_ref.mean()), ref_f32_chi2_gap_max=float(c_ref.max()),
-    )
-    log("lm quality vs f64 golden: " + json.dumps(quality))
-    for key in ("u_err_mean", "u_err_max", "chi2_gap_mean", "chi2_gap_max"):
-        if not quality[key] <= 2.0 * quality["ref_f32_" + key] + 1e-3:
-            raise AssertionError(
-                f"LM {key} {quality[key]:.3e} > 2 x the reference's float32 "
-                f"{quality['ref_f32_' + key]:.3e} + 1e-3")
-    if not quality["u_err_median"] <= ERR_GATE:
-        raise AssertionError(f"LM median |U - U_golden| {quality['u_err_median']:.3e} > {ERR_GATE}")
+    quality = lm_quality("in place", U, chi2, x0s_np)
 
     for _ in range(trials - 1):
         torch.cuda.synchronize()
@@ -704,17 +928,29 @@ def phase_lm(ocp, cfg, x0s_np, trials: int):
         torch.cuda.synchronize()
         best = min(best, time.perf_counter() - t0)
 
-    # the same batch through the three-sweep kernel: same U
+    # the same batch through the three-sweep kernel, held to the same gates.
+    # The two passes are not held to each other: float32 LM is path-dependent
+    # (one bit in a step can flip an accept or stall test, and the penalty
+    # weights a lane ends with decide its answer), so what is promised is the
+    # quality of each; their difference is reported.
     solver3 = make_batched_lm_solver(ocp, cfg, dt_init=0.1, inplace=False)
     bk.reset_launch_counts()
-    U3, _, status3, iters3, _ = solver3(x0s)
+    U3, chi2_3, status3, iters3, _ = solver3(x0s)
     torch.cuda.synchronize()
     launches3 = dict(bk.LAUNCHES)
     if launches3["btridiag_factor_solve"] <= 0 or launches3["btridiag_factor_solve_inplace"] != 0:
         raise AssertionError(f"LM path (three sweeps): unexpected kernel launches {launches3}")
+    if not bool(torch.isfinite(U3).all()):
+        raise AssertionError("LM path (three sweeps): non-finite U")
+    conv3 = float((status3 == 1).float().mean())
+    if conv3 < CONV_GATE:
+        raise AssertionError(f"LM (three sweeps) converged_frac {conv3:.4f} < {CONV_GATE}")
+    quality3 = lm_quality("three sweeps", U3, chi2_3, x0s_np)
     du3 = float((U3 - U).abs().max())
-    if not du3 <= 1e-6 or not torch.equal(status3, status):
-        raise AssertionError(f"LM through the two kernels differs: max |dU| {du3:.3e}")
+    same_status3 = float((status3 == status).float().mean())
+    same_iters3 = float((iters3 == iters).float().mean())
+    log(f"lm, three sweeps vs in place: max |dU| {du3:.3e}, status equal on "
+        f"{same_status3:.5f} of lanes, iterations equal on {same_iters3:.5f}")
 
     x0_1 = x0s[:1]
     solver(x0_1)
@@ -734,17 +970,61 @@ def phase_lm(ocp, cfg, x0s_np, trials: int):
         batch=B, solves_per_s=B / best, batch_solve_ms=best * 1e3,
         converged_frac=conv, mean_lm_iters=float(iters.float().mean()),
         max_lm_iters=int(iters.max()), max_feas_res=float(feas.max()),
-        launches=counts, max_du_three_sweeps_vs_inplace=du3,
+        launches=counts, kernel_route=route["route"], max_du_three_sweeps_vs_inplace=du3,
+        status_equal_frac_three_sweeps_vs_inplace=same_status3,
+        iters_equal_frac_three_sweeps_vs_inplace=same_iters3,
+        converged_frac_three_sweeps=conv3,
+        three_sweeps_u_err_median=quality3["u_err_median"],
+        three_sweeps_u_err_mean=quality3["u_err_mean"],
+        three_sweeps_u_err_max=quality3["u_err_max"],
         peak_device_memory_gib=peak_gb, **quality,
         p50_single_solve_ms=float(np.percentile(np.asarray(lats), 50) * 1e3),
         p99_single_solve_ms=float(np.percentile(np.asarray(lats), 99) * 1e3),
     )
 
 
+def profile_kernels_alone(ocp, cfg, x0s_all):
+    """Every hand-written kernel by itself under torch.profiler, at the main
+    paths' shapes: K1 (production exits) and K2 on both routes on the config-1
+    QPs, K3 and K4 (both routes) on random SPD systems. Returns kernel name ->
+    milliseconds (mean of 3 launches each)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from control_box_rst_tpu_torch.ops.cuda import admm_kernel as ak
+    from control_box_rst_tpu_torch.ops.cuda import btridiag_kernel as bk
+
+    qp = cfg.qp
+    base = dict(sigma=qp.sigma, alpha=qp.alpha, rho_eq_scale=qp.rho_eq_scale)
+    iters = qp.iters_per_round
+    prod_kw = dict(
+        base, rho_min=qp.rho_min, rho_max=qp.rho_max, iters=iters, tol=qp.tol,
+        n_rounds=max(1, -(-(cfg.max_iter * qp.max_iter) // iters)),
+        tol_stat=cfg.tol_stat, tol_feas=cfg.tol_feas)
+    args = config1_qps(ocp, x0s_all)
+    D, O, b = random_spd_systems(x0s_all.shape[0], ocp.N + 1, ocp.nz, x0s_all.device)
+    calls = [lambda r=r: ak.boxqp_solve(*args, **prod_kw, route=r) for r in ak.ROUTES]
+    calls += [lambda r=r: ak.admm_round(*args, iters=iters, **base, route=r) for r in ak.ROUTES]
+    calls += [lambda r=r: bk.btridiag_factor_solve(D, O, b, route=r) for r in bk.ROUTES]
+    calls += [lambda: bk.btridiag_factor_solve(D, O, b, inplace=False)]
+    for call in calls:
+        call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for call in calls:
+            for _ in range(3):
+                call()
+        torch.cuda.synchronize()
+    return {
+        e.key.split("(")[0][:60]: e.device_time_total / e.count / 1e3
+        for e in prof.key_averages()
+        if any(tag in e.key for tag in ("boxqp_solve", "admm_round", "btridiag_factor_solve"))}
+
+
 def phase_profile(solvers, x0s_np, top: int = 14):
     """torch.profiler over one batched solve of each main path and one single
-    SQP solve: device time by kernel name, and the share of the wall time the
-    device sat idle. ``solvers``: label -> (solver, number of lanes)."""
+    SQP solve: device time by kernel name, the hand-written kernels launch by
+    launch (kernel-alone times), and the share of the wall time the device
+    sat idle. ``solvers``: label -> (solver, number of lanes)."""
     from torch.profiler import ProfilerActivity, profile
 
     out = {}
@@ -764,10 +1044,21 @@ def phase_profile(solvers, x0s_np, top: int = 14):
         ]
         rows.sort(key=lambda r: -r[1])
         busy_ms = sum(r[1] for r in rows)
+        # the hand-written kernels launch by launch, in launch order
+        ours = {}
+        for e in sorted(prof.events(), key=lambda e: e.time_range.start):
+            if e.device_type == torch.autograd.DeviceType.CUDA and any(
+                    tag in e.name for tag in ("boxqp_solve", "admm_round", "btridiag_factor_solve")):
+                ours.setdefault(e.name.split("(")[0][:60], []).append(e.device_time_total / 1e3)
+        own = {
+            name: dict(launches=len(t), mean_ms=sum(t) / len(t), min_ms=min(t), max_ms=max(t),
+                       each_ms=t if len(t) <= 4 else None)
+            for name, t in ours.items()}
         out[label] = dict(
             wall_ms=wall_ms, device_busy_ms=busy_ms,
             device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
             n_device_kernels=int(sum(r[2] for r in rows)),
+            own_kernels=own,
             top=[dict(name=r[0][:60], ms=r[1], calls=r[2]) for r in rows[:top]],
         )
     return out
@@ -776,8 +1067,8 @@ def phase_profile(solvers, x0s_np, top: int = 14):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one batched solve of each main path and one "
-                         "single solve with torch.profiler")
+                    help="also trace one batched solve of each main path, one single "
+                         "solve, and every kernel by itself with torch.profiler")
     ap.add_argument("--skip-main", action="store_true",
                     help="stop after the kernel phase (no result line)")
     opts = ap.parse_args()
@@ -833,9 +1124,12 @@ def main() -> int:
 
         sqp = make_batched_solver(ocp, cfg, dt_init=0.1)
         lm = make_batched_lm_solver(ocp, lm_cfg, dt_init=0.1)
+        lm3 = make_batched_lm_solver(ocp, lm_cfg, dt_init=0.1, inplace=False)
         log(json.dumps({"profile": phase_profile(
-            {"batch": (sqp, BATCH), "single": (sqp, 1), "lm_batch": (lm, BATCH)},
+            {"batch": (sqp, BATCH), "single": (sqp, 1), "lm_batch": (lm, BATCH),
+             "lm_batch_three_sweeps": (lm3, BATCH)},
             x0s_np)}))
+        log(json.dumps({"kernels_alone_ms": profile_kernels_alone(ocp_dev, cfg, x0s_dev)}))
 
     # ---- 6 result ----
     log(json.dumps({"main": main_rec}))

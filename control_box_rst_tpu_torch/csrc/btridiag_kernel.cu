@@ -5,62 +5,98 @@
 // ------------------
 // The JAX package's two Pallas TPU kernels that compute x = M^-1 b for a batch
 // of SPD block-tridiagonal M = tridiag(O', D, O) from D, O, b in one call:
-//   btridiag_factor_solve_kernel          <-  control_box_rst_tpu/ops/pallas/
+//   btridiag_factor_solve_kernel  (K3)  <-  control_box_rst_tpu/ops/pallas/
 //       btridiag_kernel.py, btridiag_solve_pallas / _factor_solve_kernel:
 //       three sweeps over the K stages (factor M = L L', then L z = b, then
 //       L' x = z), the factor and z kept in scratch beside the inputs;
-//   btridiag_factor_solve_inplace_kernel  <-  control_box_rst_tpu/ops/pallas/
+//   btridiag_factor_solve_smem_kernel and btridiag_factor_solve_inplace_kernel
+//       (K4, two routes)  <-  control_box_rst_tpu/ops/pallas/
 //       btridiag_kernel_v2.py, btridiag_solve_pallas_v2 / _kernel: two sweeps,
-//       the forward substitution fused into the factorization sweep and the
-//       factor written over D and O.
-// Both are built from the same device functions below (Cholesky of an NZ x NZ
-// block, L X = O for a block, S -= X'X, L z = r, L' x = r), as the two Pallas
-// bodies repeat the same unrolled small-matrix algebra, so they give the same
-// bits. The arithmetic follows the Pallas bodies statement by statement:
-// only the lower triangle of D is read, the Schur complement subtracts one
-// product at a time, the off-diagonal factor is Lo = X', a negative pivot
-// gives NaN (sqrtf, no clamp), divisions stay divisions.
+//       the forward substitution fused into the factorization sweep, the
+//       factor kept where the backward sweep finds it without a scratch pass.
+// All are built from the same device functions below (Cholesky of an NZ x NZ
+// block, L X = O, S -= X'X, L z = r, L' x = r), as the Pallas bodies repeat
+// the same unrolled small-matrix algebra. The arithmetic follows the Pallas
+// bodies statement by statement: only the lower triangle of D is read, the
+// Schur complement subtracts one product at a time, the off-diagonal factor
+// is Lo = X', a negative pivot gives NaN (sqrtf, no clamp), divisions stay
+// divisions.
 //
 // What is different from the TPU kernels, on purpose
 // --------------------------------------------------
-// No tiles of 128 or 1024 lanes padded with identity blocks: a lane is a
-// thread, any batch size runs, the ragged edge is masked. The in-place entry
-// keeps z in the output array x (the backward sweep overwrites it stage by
-// stage) instead of a scratch of its own.
+// No tiles of 128 or 1024 lanes padded with identity blocks: any batch size
+// runs, the ragged edge is masked. Nothing is written over the caller's D and
+// O: "in place" on the TPU meant the factor reused the input tiles in fast
+// memory; here the factor has fast memory of its own.
 //
-// Design
-// ------
-// One thread per lane; NZ is a compile-time constant (one shared library per
-// NZ, -DNZ=..), the stage loops are real loops, a stage's blocks live in
-// registers. Per-lane arrays are tile-major, [ceil(B/T)][rows][T] with T = 32
-// (a warp is one tile: 32 neighbouring floats per access, one contiguous
-// block per warp and array) or T = 1 (batches smaller than a warp: each
-// lane's arrays contiguous). The wrapper converts layouts with torch and owns
-// every buffer; the kernels allocate nothing and launch on the caller's
-// stream.
+// K4, the solvers' route: NZ threads per lane, factor in shared memory
+// -------------------------------------------------------------------
+// btridiag_factor_solve_smem_kernel reads D, O, b batch-first exactly as the
+// caller has them (base pointer and lane stride; stride 0 is a D or O shared
+// by all lanes) and writes x batch-first: the wrapper converts no layout and
+// allocates nothing but x. A lane is a group of NZ neighbouring threads,
+// 32/NZ lanes to a warp, one warp to a block. The factor (per stage one record
+// of the diagonal block, packed lower, with the reciprocals of its pivots;
+// the sub-diagonal blocks) and z of every stage stay in dynamic shared memory
+// between the two sweeps (the table BT_SMEM_LANE_ARRAYS: 6,880 B per lane at
+// K=51, NZ=4), so a lane moves its 8,096 bytes of input and output once and
+// nothing else.
+// Inside a stage the group shares the work where the algebra is parallel:
+// thread c solves column c of L X = O (its NZ divisions run beside the other
+// columns') and writes it as row c of Lo; the group then reads X back from
+// shared memory. What is a chain anyway (Schur complement, Cholesky, the two
+// triangular solves) every thread of the group computes for itself from the
+// same values: that costs no instruction more than one thread doing it (a
+// warp issues once for all its threads), needs no shuffle on the critical
+// path, and leaves L, z and x in the registers of every thread that needs
+// them next. z lags one stage behind the factor, so its quotients overlap
+// the next stage's X solve instead of lengthening the chain. The inputs of
+// the next BT_PREFETCH stages are in flight while a stage is computed. The
+// substitutions divide by pivots whose reciprocals the Cholesky step has
+// anyway, so their quotients are built from those (quotient<> of
+// quotient.cuh, bit for bit the division): a division costs ~45 cycles on a chain and ~240 where
+// its numerator is zero, infinite or NaN -- and LM hands over systems that
+// are not positive definite in float32 (a third of the lanes late in a
+// solve), whose lanes are NaN from the first negative pivot on and would
+// hold up the seven other lanes of their warp at every stage.
+// Tensor cores are not used: the blocks are 4x4 in float32, and TF32 (the
+// best a wgmma tile offers) keeps three decimal digits where LM's accept test
+// needs seven.
 //
-// What bounds it on this card
-// ---------------------------
+// K3, and K4 for shapes whose factor does not fit: one thread per lane
+// --------------------------------------------------------------------
+// btridiag_factor_solve_kernel (three sweeps, factor in scratch) and
+// btridiag_factor_solve_inplace_kernel (two sweeps, factor written over the
+// wrapper's copies of D and O, next stage's loads issued before the current
+// stage's stores). NZ is a compile-time constant, per-lane arrays are
+// tile-major [ceil(B/T)][rows][T] with T = 32 (a warp reads 32 neighbouring
+// floats per access) or T = 1 (batches smaller than a warp); the wrapper
+// converts layouts with torch and owns every buffer.
+//
+// What bounds them on this card
+// -----------------------------
 // Per lane 4*(K*NZ^2 + (K-1)*NZ^2 + 2*K*NZ) bytes go in and out (8,096 B at
 // K=51, NZ=4) against ~13.8 k float32 operations: 1.7 operations per byte
-// where the card needs ~20 to be limited by arithmetic, so bytes bind. But
-// the work of a lane is one dependent chain over the stages (the factor of
-// stage k needs the factor of stage k-1), and with one thread per lane a
-// batch of 32768 is only ~8 warps per SM, so what a launch really waits for
-// is latency: every stage is a round trip to memory followed by a chain of
-// ~200 dependent operations with a square root and divisions. What the
-// design does about it: the inputs of stage k+1 do not depend on stage k, so
-// the in-place entry (the one on the solver's path) starts the loads of the
-// next stage before it computes and stores the current one, in both sweeps;
-// the memory round trip then overlaps the arithmetic instead of preceding
-// it. The three-sweep entry writes its factor to scratch buffers that alias
-// nothing (__restrict__), moves ~12 KB more per lane, and is the plain form
-// of the same algebra. Several threads per lane (one per column of a block)
-// and a shared-memory pipeline fed by TMA are the steps after this one.
+// where the card needs ~20 to be limited by arithmetic, so bytes bind on
+// paper. But a lane is one dependent chain over the stages (the factor of
+// stage k needs the factor of stage k-1: per stage NZ divisions, then NZ
+// square roots and NZ more divisions, each waiting for the last), so what a
+// launch really waits for is latency, and the cure is lanes in flight. The
+// one-thread-per-lane kernels have the whole batch in flight but pay a round
+// trip to device memory per stage and, in the wrapper, a transposition of
+// 265 MB. The shared-memory route pays neither, and is bound by how many
+// lanes the 227 KB of an SM hold (32 at the shapes above, four warps) times
+// the latency of a lane's chain: a warp alone on its scheduler is issued an
+// instruction every ~3 cycles, a stage is ~350 of them, and the kernel by
+// itself is slower than the one-thread-per-lane kernel with its 248 lanes
+// per SM in flight (0.52 against 0.31 ms on an H100 at B=32768). What the
+// route saves is the wrapper's copies.
 //
 // No -use_fast_math: pivots are divided by and square-rooted.
 
 #include <cuda_runtime.h>
+
+#include "quotient.cuh"
 
 #ifndef NZ
 #define NZ 4
@@ -451,6 +487,345 @@ int btridiag_factor_solve_inplace_launch(void* const* p, long long B, int K,
     if (!kernel) return (int)cudaErrorInvalidValue;
     kernel<<<grid, BLOCK_THREADS, 0, (cudaStream_t)stream>>>(
         (float*)p[0], (float*)p[1], (const float*)p[2], (float*)p[3], B, K);
+    return (int)cudaGetLastError();
+}
+
+}  // extern "C"
+
+// ===========================================================================
+// K4 on the shared-memory route: NZ threads per lane, factor and z on chip
+// ===========================================================================
+
+#define BT_SMEM_ALIGN_FLOATS 4  // every sub-array of a lane starts 16-byte aligned
+#define BT_LANES_PER_WARP (32 / NZ)
+#define BT_PREFETCH 3           // stages whose inputs are in flight
+// Floats of a stage's record in Lf: the NTRI entries of the diagonal factor
+// (packed lower), then the NZ reciprocals of its pivots.
+#define BT_FREC (NTRI + NZ)
+
+// The per-lane arrays in dynamic shared memory, in carve order: X(name, floats)
+// with K stages. ops/cuda/btridiag_kernel.py:factor_bytes_per_lane states the
+// same sum (the CPU tests parse this table and hold the two together).
+#define BT_SMEM_LANE_ARRAYS(X) \
+    X(Lf, K * BT_FREC)         /* per stage: diagonal factor packed lower, 1 / pivots */ \
+    X(Lo, (K - 1) * NZ * NZ)   /* sub-diagonal factors */ \
+    X(z, K * NZ)               /* L^-1 b */
+
+__host__ __device__ inline int bt_round_up(int floats) {
+    return (floats + BT_SMEM_ALIGN_FLOATS - 1) / BT_SMEM_ALIGN_FLOATS * BT_SMEM_ALIGN_FLOATS;
+}
+
+__host__ __device__ inline int bt_smem_floats_per_lane(int K) {
+    int total = 0;
+#define BT_COUNT(name, floats) total += bt_round_up(floats);
+    BT_SMEM_LANE_ARRAYS(BT_COUNT)
+#undef BT_COUNT
+    return total;
+}
+
+struct FactorSmem {
+#define BT_DECLARE(name, floats) float* name;
+    BT_SMEM_LANE_ARRAYS(BT_DECLARE)
+#undef BT_DECLARE
+};
+
+__device__ __forceinline__ FactorSmem bt_carve(float* base, int K) {
+    FactorSmem s;
+#define BT_TAKE(name, floats) \
+    s.name = base;            \
+    base += bt_round_up(floats);
+    BT_SMEM_LANE_ARRAYS(BT_TAKE)
+#undef BT_TAKE
+    return s;
+}
+
+// sqrtf(d) and 1.0f / dj, value for value, without the hardware's slow path
+// where the answer is NaN anyway: LM hands over systems that are not positive
+// definite in float32 (a third of the lanes late in a solve), their lanes are
+// NaN from the first negative pivot on, and eight lanes share a warp.
+__device__ __forceinline__ float pivot_sqrt(float d) {
+    return (d > 0.0f) ? sqrtf(d) : ((d == 0.0f) ? d : __int_as_float(0x7fffffff));
+}
+
+__device__ __forceinline__ float pivot_reciprocal(float dj) {
+    return (dj != dj) ? dj : 1.0f / dj;
+}
+
+// L = chol(S) as chol_block, and the reciprocals of its pivots beside it.
+__device__ __forceinline__ void chol_block_inv(const float (&S)[NZ][NZ], float (&L)[NZ][NZ],
+                                               float (&Linv)[NZ]) {
+#pragma unroll
+    for (int j = 0; j < NZ; ++j) {
+        float d = S[j][j];
+#pragma unroll
+        for (int t = 0; t < j; ++t) d -= L[j][t] * L[j][t];
+        const float dj = pivot_sqrt(d);
+        L[j][j] = dj;
+        const float inv = pivot_reciprocal(dj);
+        Linv[j] = inv;
+#pragma unroll
+        for (int i = j + 1; i < NZ; ++i) {
+            float acc = S[i][j];
+#pragma unroll
+            for (int t = 0; t < j; ++t) acc -= L[i][t] * L[j][t];
+            L[i][j] = acc * inv;
+        }
+    }
+}
+
+// One column of X = L^-1 O and z = L^-1 r, both from the same factor: two
+// chains of quotients that wait for L only, so they run beside each other.
+template <bool FAST>
+__device__ __forceinline__ bool solve_column_and_vec(const float (&L)[NZ][NZ],
+                                                     const float (&Linv)[NZ],
+                                                     const float (&Oc)[NZ], const float (&r)[NZ],
+                                                     float (&Xc)[NZ], float (&z)[NZ]) {
+    bool bad = false;
+#pragma unroll
+    for (int i = 0; i < NZ; ++i) {
+        float acc = Oc[i], accz = r[i];
+#pragma unroll
+        for (int t = 0; t < i; ++t) {
+            acc -= L[i][t] * Xc[t];
+            accz -= L[i][t] * z[t];
+        }
+        Xc[i] = quotient<FAST>(acc, L[i][i], Linv[i], bad);
+        z[i] = quotient<FAST>(accz, L[i][i], Linv[i], bad);
+    }
+    return bad;
+}
+
+// z = L^-1 r
+template <bool FAST>
+__device__ __forceinline__ bool solve_lower_rec(const float (&L)[NZ][NZ], const float (&Linv)[NZ],
+                                                const float (&r)[NZ], float (&z)[NZ]) {
+    bool bad = false;
+#pragma unroll
+    for (int i = 0; i < NZ; ++i) {
+        float acc = r[i];
+#pragma unroll
+        for (int t = 0; t < i; ++t) acc -= L[i][t] * z[t];
+        z[i] = quotient<FAST>(acc, L[i][i], Linv[i], bad);
+    }
+    return bad;
+}
+
+// x = L^-T r from a stage's record f
+template <bool FAST>
+__device__ __forceinline__ bool solve_upper_rec(const float (&f)[BT_FREC], const float (&r)[NZ],
+                                                float (&x)[NZ]) {
+    bool bad = false;
+#pragma unroll
+    for (int i = NZ - 1; i >= 0; --i) {
+        float acc = r[i];
+#pragma unroll
+        for (int t = i + 1; t < NZ; ++t) acc -= f[TRI(t, i)] * x[t];
+        x[i] = quotient<FAST>(acc, f[TRI(i, i)], f[NTRI + i], bad);
+    }
+    return bad;
+}
+
+__device__ __forceinline__ bool reciprocals_ok(const float* y) {
+    bool ok = true;
+#pragma unroll
+    for (int i = 0; i < NZ; ++i) ok = ok && reciprocal_ok(y[i]);
+    return ok;
+}
+
+// Inputs of one stage as a thread of the group holds them: the lower triangle
+// of D_k, column c of O_{k-1}, b_k.
+struct StageInputs {
+    float S[NZ][NZ];
+    float Oc[NZ];
+    float r[NZ];
+};
+
+__device__ __forceinline__ void load_stage_inputs(const float* __restrict__ D,
+                                                  const float* __restrict__ O,
+                                                  const float* __restrict__ b, int k, int K,
+                                                  int c, StageInputs& in) {
+    if (k >= K) return;
+#pragma unroll
+    for (int i = 0; i < NZ; ++i)
+#pragma unroll
+        for (int j = 0; j <= i; ++j) in.S[i][j] = __ldg(D + (size_t)((k * NZ + i) * NZ + j));
+#pragma unroll
+    for (int i = 0; i < NZ; ++i) in.r[i] = __ldg(b + (size_t)(k * NZ + i));
+    if (k > 0) {
+#pragma unroll
+        for (int i = 0; i < NZ; ++i)
+            in.Oc[i] = __ldg(O + (size_t)(((k - 1) * NZ + i) * NZ + c));
+    }
+}
+
+// v[c] for a thread-dependent c without indexing registers dynamically
+__device__ __forceinline__ float pick(const float (&v)[NZ], int c) {
+    float out = v[0];
+#pragma unroll
+    for (int i = 1; i < NZ; ++i) out = (c == i) ? v[i] : out;
+    return out;
+}
+
+// D, O, b, x: batch-first; lane l's arrays start at D + l * strideD etc.
+// (strides in floats; strideD, strideO may be 0), each contiguous.
+__global__ void __launch_bounds__(32)
+btridiag_factor_solve_smem_kernel(const float* __restrict__ D, const float* __restrict__ O,
+                                  const float* __restrict__ b, float* __restrict__ x,
+                                  long long B, int K, long long strideD, long long strideO,
+                                  long long strideb, int lane_floats) {
+    extern __shared__ __align__(16) float smem[];
+    const int c = (int)threadIdx.x % NZ;  // the thread's column
+    // left-over threads when 32 % NZ != 0 shadow slot 0 and write nothing
+    const bool member = (int)threadIdx.x / NZ < BT_LANES_PER_WARP;
+    const int grp = member ? (int)threadIdx.x / NZ : 0;  // the lane's slot in the warp
+    const bool keeper = member && c == 0;  // writes what the whole group computed
+    const long long mine = (long long)blockIdx.x * BT_LANES_PER_WARP + grp;
+    const bool active = member && mine < B;
+    const long long lane = active ? mine : 0;  // an idle group reads lane 0, writes nothing
+    D += lane * strideD;
+    O += lane * strideO;
+    b += lane * strideb;
+    x += lane * (long long)(K * NZ);
+    const FactorSmem s = bt_carve(smem + (size_t)grp * lane_floats, K);
+
+    float L[NZ][NZ] = {};  // factor of the previous stage
+    float Linv[NZ] = {};   // reciprocals of its pivots
+    bool pivots_ok = false;  // ... all inside quotient's window
+    float r[NZ] = {};      // b_{k-1} - Lo_{k-2} z_{k-2}: what z_{k-1} is solved from
+    float zv[NZ] = {};     // z_{k-1}
+
+    // ---- forward: factor stage k, substitute stage k-1 ----
+    StageInputs q[BT_PREFETCH];
+#pragma unroll
+    for (int u = 0; u < BT_PREFETCH; ++u) load_stage_inputs(D, O, b, u, K, c, q[u]);
+    for (int k0 = 0; k0 < K; k0 += BT_PREFETCH) {
+#pragma unroll
+        for (int u = 0; u < BT_PREFETCH; ++u) {
+            const int k = k0 + u;
+            if (k < K) {
+                float S[NZ][NZ], rk[NZ];
+                copy_lower(S, q[u].S);
+                copy_vec(rk, q[u].r);
+                if (k > 0) {
+                    // column c of X = L^-1 O, beside z_{k-1} = L^-1 r
+                    float Xc[NZ];
+                    if (!pivots_ok || solve_column_and_vec<true>(L, Linv, q[u].Oc, r, Xc, zv))
+                        solve_column_and_vec<false>(L, Linv, q[u].Oc, r, Xc, zv);
+                    // Lo_{k-1} = X': column c of X is row c of Lo
+                    if (member) store_floats(s.Lo + (k - 1) * NZ * NZ, c, Xc);
+                    if (keeper) store_floats(s.z, k - 1, zv);
+                    __syncwarp();
+                    float lo[NZ * NZ], X[NZ][NZ];
+                    load_floats(s.Lo, k - 1, lo);
+#pragma unroll
+                    for (int t = 0; t < NZ; ++t)
+#pragma unroll
+                        for (int i = 0; i < NZ; ++i) X[t][i] = lo[i * NZ + t];
+                    schur_update(S, X);
+                    sub_Xt_vec(rk, X, zv);
+                }
+                // the inputs of stage k are used up: ask for stage k + BT_PREFETCH
+                load_stage_inputs(D, O, b, k + BT_PREFETCH, K, c, q[u]);
+                chol_block_inv(S, L, Linv);
+                pivots_ok = reciprocals_ok(Linv);
+                copy_vec(r, rk);
+                if (keeper) {
+                    float f[BT_FREC];
+#pragma unroll
+                    for (int i = 0; i < NZ; ++i) {
+                        f[NTRI + i] = Linv[i];
+#pragma unroll
+                        for (int j = 0; j <= i; ++j) f[TRI(i, j)] = L[i][j];
+                    }
+                    store_floats(s.Lf, k, f);
+                }
+            }
+        }
+    }
+    // z of the last stage
+    if (!pivots_ok || solve_lower_rec<true>(L, Linv, r, zv)) solve_lower_rec<false>(L, Linv, r, zv);
+
+    // ---- backward: L' x = z (every thread of the group, from shared memory) ----
+    __syncwarp();  // the records and z of every stage are in shared memory
+    float f[BT_FREC], lo[NZ * NZ], xv[NZ];
+#pragma unroll
+    for (int i = 0; i < NZ; ++i) {
+        f[NTRI + i] = Linv[i];
+#pragma unroll
+        for (int j = 0; j <= i; ++j) f[TRI(i, j)] = L[i][j];
+    }
+    copy_vec(r, zv);
+    if (K > 1) load_floats(s.Lo, K - 2, lo);
+    for (int k = K - 1; k >= 0; --k) {
+        // the stage below is loaded before this stage's chain of quotients starts
+        float fn[BT_FREC], lon[NZ * NZ], rn[NZ];
+        if (k > 0) {
+            load_floats(s.Lf, k - 1, fn);
+            load_floats(s.z, k - 1, rn);
+            if (k > 1) load_floats(s.Lo, k - 2, lon);
+        }
+        if (!reciprocals_ok(f + NTRI) || solve_upper_rec<true>(f, r, xv))
+            solve_upper_rec<false>(f, r, xv);
+        if (active) x[k * NZ + c] = pick(xv, c);
+        if (k > 0) {
+            // right-hand side of stage k-1: z_{k-1} - Lo_{k-1}' x_k
+#pragma unroll
+            for (int i = 0; i < NZ; ++i) {
+                float acc = rn[i];
+#pragma unroll
+                for (int t = 0; t < NZ; ++t) acc -= lo[t * NZ + i] * xv[t];
+                r[i] = acc;
+            }
+#pragma unroll
+            for (int j = 0; j < BT_FREC; ++j) f[j] = fn[j];
+#pragma unroll
+            for (int j = 0; j < NZ * NZ; ++j) lo[j] = lon[j];
+        }
+    }
+}
+
+extern "C" {
+
+// Floats of shared memory a lane takes on the shared-memory route; the wrapper
+// holds its own formula against this before the first launch.
+int btridiag_smem_floats_per_lane(int K) { return bt_smem_floats_per_lane(K); }
+
+// Shared-memory route of K4. p: host array of device pointers to float32
+// arrays, batch-first, each lane's array contiguous:
+//   0 D [B | 1][K*NZ*NZ]  1 O [B | 1][(K-1)*NZ*NZ]  2 b [B][K*NZ]   (read only)
+//   3 x [B][K*NZ] contiguous                                        (output)
+// strides: floats between consecutive lanes of D, O, b (0: one copy for all).
+// info (4 ints, may be null): 0 dynamic shared memory of a block, bytes
+//   1 blocks  2 resident blocks per SM  3 registers per thread.
+// Returns the first CUDA error of the attribute calls or cudaGetLastError()
+// after the launch.
+int btridiag_factor_solve_smem_launch(void* const* p, long long B, int K, long long strideD,
+                                      long long strideO, long long strideb, int* info,
+                                      void* stream) {
+    if (B <= 0) return 0;
+    if (K < 1) return (int)cudaErrorInvalidValue;
+    const int lane_floats = bt_smem_floats_per_lane(K);
+    const int smem_bytes = BT_LANES_PER_WARP * lane_floats * (int)sizeof(float);
+    const void* kernel = (const void*)btridiag_factor_solve_smem_kernel;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+    const unsigned grid = (unsigned)((B + BT_LANES_PER_WARP - 1) / BT_LANES_PER_WARP);
+    if (info) {
+        int per_sm = 0;
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32, smem_bytes);
+        if (err != cudaSuccess) return (int)err;
+        cudaFuncAttributes attr;
+        err = cudaFuncGetAttributes(&attr, kernel);
+        if (err != cudaSuccess) return (int)err;
+        info[0] = smem_bytes;
+        info[1] = (int)grid;
+        info[2] = per_sm;
+        info[3] = attr.numRegs;
+    }
+    btridiag_factor_solve_smem_kernel<<<grid, 32, smem_bytes, (cudaStream_t)stream>>>(
+        (const float*)p[0], (const float*)p[1], (const float*)p[2], (float*)p[3], B, K,
+        strideD, strideO, strideb, lane_floats);
     return (int)cudaGetLastError();
 }
 

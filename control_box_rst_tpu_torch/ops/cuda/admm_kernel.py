@@ -7,16 +7,25 @@ Counterpart of the JAX package's ``ops/pallas/admm_kernel.py``:
       lane (recentered ρ-adaptive ADMM rounds with early exit) in one launch;
   ``admm_round``   ↔ ``admm_round_pallas``   — one ρ-round at fixed ρ.
 
-The kernels are CUDA C++ (``csrc/admm_kernel.cu``, one thread per lane,
-tile-major lane layout; see the source note there). They are compiled at first use
+The kernels are CUDA C++ (``csrc/admm_kernel.cu``; see the source note
+there), two routes behind each wrapper. Where a lane's state fits shared
+memory (``solve_route``: every horizon up to a few hundred stages) the
+kernels keep it there for the whole solve, a team of threads serves a lane,
+persistent blocks hand lanes out from a queue, and the operands are read and
+the results written batch-first as the caller has them: the wrapper copies
+nothing but a strided or broadcast view. Longer horizons take the
+one-thread-per-lane kernels with the state in device memory and a tile-major
+lane layout (``ops/cuda/layout.py``). The library is compiled at first use
 with ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface
 and loaded with ``ctypes``; nothing is built or looked up when this module is
 imported.
 
 Dispatch rule of both wrappers: a CPU tensor takes the plain version
-(``boxqp_solve_plain`` / ``admm_round_plain``); a CUDA tensor launches the
-kernel or raises — there is no fallback when the build or the launch fails.
-``LAUNCHES`` counts kernel launches per wrapper, and nothing else.
+(``boxqp_solve_plain`` / ``admm_round_plain``); a CUDA tensor launches a
+kernel or raises — there is no fallback when the build or the launch fails,
+and the route is chosen from the shapes, never from a failure.
+``LAUNCHES`` counts kernel launches per wrapper, and nothing else;
+``LAUNCH_INFO`` says what the last launch of each wrapper chose.
 
 Per-lane QP (δ = step on the stage variables, Kst = N+1 stages):
 
@@ -253,27 +262,93 @@ def io_bytes(Kst: int, nz: int, nc: int, B: int, full_solve: bool,
 
 
 # --------------------------------------------------------------------------
+# the two routes of the kernels, and the rule that picks one from the shapes
+# --------------------------------------------------------------------------
+
+# Dynamic shared memory one block may ask for on an H100 (227 KB).
+MAX_DYNAMIC_SMEM_BYTES = 232448
+# The shared-memory route is taken where at least this many lanes fit a block.
+MIN_RESIDENT_LANES = 4
+# Lanes served by one warp on the shared-memory route: teams of 16 threads
+# (``TEAM`` of ``csrc/admm_kernel.cu``, a compile-time constant).
+LANES_PER_WARP = 2
+SMEM_ALIGN_FLOATS = 4
+ROUTES = ("smem", "thread")
+
+# what the last launch of each wrapper chose (route, block shape, registers)
+LAUNCH_INFO: Dict[str, dict] = {"boxqp_solve": {}, "admm_round": {}}
+
+
+def _round_up(floats: int) -> int:
+    return -(-floats // SMEM_ALIGN_FLOATS) * SMEM_ALIGN_FLOATS
+
+
+def state_bytes_per_lane(Kst: int, nz: int, nc: int, shared_hjk: bool) -> int:
+    """Shared memory one lane takes on the shared-memory route: the sum of
+    the table ``SMEM_LANE_ARRAYS`` of ``csrc/admm_kernel.cu`` — eight stage
+    vectors, two interval vectors, per stage one record of the diagonal
+    factor (packed lower) with the reciprocals of its pivots, the
+    sub-diagonal factors, and the lane's own J and K unless Hd, J, K are one
+    copy for the batch — every array rounded up to 16 bytes."""
+    N = Kst - 1
+    record = _round_up(nz * (nz + 1) // 2 + nz)
+    floats = (
+        8 * _round_up(Kst * nz) + 2 * _round_up(N * nc)
+        + _round_up(Kst * record) + _round_up(N * nz * nz)
+    )
+    if not shared_hjk:
+        floats += 2 * _round_up(N * nc * nz)
+    return 4 * floats
+
+
+def solve_route(Kst: int, nz: int, nc: int, shared_hjk: bool) -> str:
+    """Which kernels a problem shape takes, from the shape alone: ``'smem'``
+    (a lane's state in shared memory, a team of threads per lane) where at
+    least ``MIN_RESIDENT_LANES`` lanes fit the shared memory of a block,
+    ``'thread'`` (one thread per lane, state in device memory) otherwise —
+    long horizons."""
+    fits = MIN_RESIDENT_LANES * state_bytes_per_lane(Kst, nz, nc, shared_hjk)
+    return "smem" if fits <= MAX_DYNAMIC_SMEM_BYTES else "thread"
+
+
+def resident_lanes_per_sm(Kst: int, nz: int, nc: int, shared_hjk: bool) -> int:
+    """Lanes the shared memory of one SM holds on the shared-memory route, in
+    whole warps of ``LANES_PER_WARP`` lanes (what the launcher reaches at the
+    flagship shapes; ``LAUNCH_INFO`` has what a launch really got)."""
+    warp_bytes = LANES_PER_WARP * state_bytes_per_lane(Kst, nz, nc, shared_hjk)
+    return LANES_PER_WARP * (MAX_DYNAMIC_SMEM_BYTES // warp_bytes)
+
+
+# --------------------------------------------------------------------------
 # load (built at first use by ops/cuda/build.py)
 # --------------------------------------------------------------------------
 
-def _load(nz: int, nc: int) -> ctypes.CDLL:
-    def declare(lib):
-        c_f, c_i, c_p = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
-        for fn in (lib.admm_kernel_nz, lib.admm_kernel_nc):
-            fn.restype, fn.argtypes = c_i, []
-        lib.admm_round_launch.restype = c_i
-        lib.admm_round_launch.argtypes = [
-            c_p, ctypes.c_longlong, c_i, c_i, c_i, c_i, c_f, c_f, c_f, c_p,
-        ]
-        lib.boxqp_solve_launch.restype = c_i
-        lib.boxqp_solve_launch.argtypes = [
-            c_p, ctypes.c_longlong, c_i, c_i, c_i, c_i, c_i,
-            c_f, c_f, c_f, c_f, c_f, c_f, c_f, c_f, c_p,
-        ]
-        if (lib.admm_kernel_nz(), lib.admm_kernel_nc()) != (nz, nc):
-            raise RuntimeError(f"library built for another (nz, nc) than {(nz, nc)}")
+def declare(lib: ctypes.CDLL, nz: int, nc: int) -> None:
+    """``restype`` / ``argtypes`` of the library's C functions, and a check
+    that it is the (nz, nc) specialisation."""
+    c_f, c_i, c_p = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
+    c_ll = ctypes.c_longlong
+    for fn in (lib.admm_kernel_nz, lib.admm_kernel_nc):
+        fn.restype, fn.argtypes = c_i, []
+    lib.admm_smem_floats_per_lane.restype = c_i
+    lib.admm_smem_floats_per_lane.argtypes = [c_i, c_i]
+    lib.admm_round_launch.restype = c_i
+    lib.admm_round_launch.argtypes = [c_p, c_ll, c_i, c_i, c_i, c_i, c_f, c_f, c_f, c_p]
+    lib.boxqp_solve_launch.restype = c_i
+    lib.boxqp_solve_launch.argtypes = [c_p, c_ll, c_i, c_i, c_i, c_i, c_i] + [c_f] * 8 + [c_p]
+    lib.admm_round_smem_launch.restype = c_i
+    lib.admm_round_smem_launch.argtypes = [c_p, c_ll, c_i, c_i, c_i, c_f, c_f, c_f, c_p, c_p]
+    lib.boxqp_solve_smem_launch.restype = c_i
+    lib.boxqp_solve_smem_launch.argtypes = (
+        [c_p, c_ll, c_i, c_i, c_i, c_i] + [c_f] * 8 + [c_p, c_p])
+    lib.admm_division_check_launch.restype = c_i
+    lib.admm_division_check_launch.argtypes = [c_p, c_p, c_p, c_ll, c_p]
+    if (lib.admm_kernel_nz(), lib.admm_kernel_nc()) != (nz, nc):
+        raise RuntimeError(f"library built for another (nz, nc) than {(nz, nc)}")
 
-    return build.load(*build_spec(nz, nc), declare)
+
+def _load(nz: int, nc: int) -> ctypes.CDLL:
+    return build.load(*build_spec(nz, nc), lambda lib: declare(lib, nz, nc))
 
 
 # --------------------------------------------------------------------------
@@ -313,9 +388,9 @@ def _check_args(args):
 
 
 def _check_cuda_args(args):
-    """The kernels take float32. Strides are free (a broadcast view is fine):
-    the wrapper copies every operand into the kernels' own contiguous lane
-    layout, and that copy is what the kernel sees."""
+    """The kernels take float32. Strides are free (a broadcast or strided
+    view is fine): the wrappers make a contiguous copy of what is not
+    contiguous, and only of that."""
     for name, a in zip(_ARG_NAMES, args):
         if a.dtype != torch.float32:
             raise TypeError(f"{name}: the CUDA kernels take float32, got {a.dtype}")
@@ -329,8 +404,9 @@ def _lane_invariant(*arrays: torch.Tensor) -> bool:
 
 
 def _kernel_operands(args):
-    """The 12 reference-order operands in the kernels' layout, and whether
-    Hd, J, K are passed as one shared copy."""
+    """The 12 reference-order operands in the tile-major lane layout of the
+    one-thread-per-lane kernels, and whether Hd, J, K are passed as one
+    shared copy."""
     shared = _lane_invariant(*args[:3])
     head = (
         [a[0].reshape(-1).contiguous() for a in args[:3]] if shared
@@ -339,43 +415,143 @@ def _kernel_operands(args):
     return head + [to_kernel_layout(a) for a in args[3:]], shared
 
 
+def _batch_first_operands(args):
+    """The 12 reference-order operands as the shared-memory kernels read
+    them: batch-first and contiguous. An operand that is contiguous already
+    is passed as it is (no copy); Hd, J, K broadcast over the batch are
+    passed as their one copy."""
+    shared = _lane_invariant(*args[:3])
+    head = [a[0].contiguous() if shared else a.contiguous() for a in args[:3]]
+    return head + [a.contiguous() for a in args[3:]], shared
+
+
+def _pick_route(name, route, Kst, nz, nc, shared):
+    rule = solve_route(Kst, nz, nc, shared)
+    if route is None:
+        return rule
+    if route not in ROUTES:
+        raise ValueError(f"{name}: route must be one of {ROUTES} or None, got {route!r}")
+    if route == "smem" and rule != "smem":
+        raise ValueError(
+            f"{name}: a lane of Kst={Kst}, nz={nz}, nc={nc} takes "
+            f"{state_bytes_per_lane(Kst, nz, nc, shared)} bytes; fewer than "
+            f"{MIN_RESIDENT_LANES} fit {MAX_DYNAMIC_SMEM_BYTES} bytes of shared memory")
+    return route
+
+
+def _launch_smem(lib, name, args, dims, scal, stream):
+    """Launch a shared-memory-route kernel on batch-first operands (no layout
+    conversion; outputs allocated batch-first). ``name``: 'boxqp_solve' or
+    'admm_round'. Returns the outputs in the wrappers' order."""
+    B, Kst, nz, nc = dims
+    t, shared = _batch_first_operands(args)
+    want = state_bytes_per_lane(Kst, nz, nc, shared)
+    have = 4 * lib.admm_smem_floats_per_lane(Kst, int(shared))
+    if have != want:
+        raise RuntimeError(
+            f"{name}: the kernel carves {have} bytes of shared memory per lane, "
+            f"state_bytes_per_lane says {want}")
+    x, z_b, y_d, y_b = (torch.empty_like(t[i]) for i in (8, 9, 10, 11))
+    full = name == "boxqp_solve"
+    pr, dr, it = (torch.empty_like(t[7]) for _ in range(3))
+    outs = [x, z_b, y_d, y_b, pr, dr]
+    if full:
+        outs += [it, torch.zeros((1,), dtype=torch.int32, device=x.device)]
+    info = (ctypes.c_int * 6)()
+    launch = lib.boxqp_solve_smem_launch if full else lib.admm_round_smem_launch
+    err = launch(ptr_array(t + outs), B, Kst, int(shared), *scal, info, stream)
+    LAUNCHES[name] += 1
+    if err != 0:
+        raise RuntimeError(f"{name}: shared-memory kernel launch failed: CUDA error {err}")
+    LAUNCH_INFO[name] = dict(
+        route="smem", lanes_per_warp=LANES_PER_WARP, shared_hjk=bool(shared),
+        smem_bytes_per_lane=want, warps_per_block=info[0], smem_bytes_per_block=info[1],
+        blocks=info[2], blocks_per_sm=info[3], registers_per_thread=info[4], sms=info[5],
+        resident_lanes_per_sm=info[3] * info[0] * LANES_PER_WARP,
+    )
+    return (x, z_b, y_d, y_b, pr, dr, it) if full else (x, z_b, y_d, y_b, pr, dr)
+
+
+def _launch_thread(lib, name, args, dims, scal, stream):
+    """Launch a one-thread-per-lane kernel: operands converted into the
+    tile-major lane layout, scratch allocated, results converted back."""
+    B, Kst, nz, nc = dims
+    N, ntri = Kst - 1, nz * (nz + 1) // 2
+    x_in = args[8]
+    t, shared = _kernel_operands(args)  # g, c copies double as g_s, c_s
+    new = lambda rows: torch.empty(
+        (rows * padded_lanes(B),), dtype=torch.float32, device=x_in.device)
+    Ld, Lo, xt = new(Kst * ntri), new(N * nz * nz), new(Kst * nz)
+    full = name == "boxqp_solve"
+    pr, dr, it = (torch.empty((B,), dtype=torch.float32, device=x_in.device) for _ in range(3))
+    extra = [Ld, Lo, xt, pr, dr]
+    if full:
+        xtot = torch.zeros_like(xt)
+        extra += [xtot, it]
+    launch = lib.boxqp_solve_launch if full else lib.admm_round_launch
+    err = launch(ptr_array(t + extra), B, Kst, lane_tile(B), int(shared), *scal, stream)
+    LAUNCHES[name] += 1
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed: CUDA error {err}")
+    LAUNCH_INFO[name] = dict(route="thread", lane_tile=lane_tile(B), shared_hjk=bool(shared))
+    back = lambda i, like: from_kernel_layout(t[i], like.shape)
+    tail = (back(9, args[9]), back(10, args[10]), back(11, args[11]), pr, dr)
+    if full:
+        return (from_kernel_layout(xtot, x_in.shape),) + tail + (it,)
+    return (back(8, x_in),) + tail
+
+
+def _launch(name, args, dims, scal, route):
+    Hd = args[0]
+    if Hd.device.type != "cuda":
+        raise RuntimeError(f"{name}: unsupported device {Hd.device}")
+    _check_cuda_args(args)
+    _, Kst, nz, nc = dims
+    route = _pick_route(name, route, Kst, nz, nc, _lane_invariant(*args[:3]))
+    lib = _load(nz, nc)
+    with torch.cuda.device(Hd.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if route == "smem":
+            return _launch_smem(lib, name, args, dims, scal, stream)
+        return _launch_thread(lib, name, args, dims, scal, stream)
+
+
+def division_mismatches(a: torch.Tensor, b: torch.Tensor, nz: int, nc: int) -> torch.Tensor:
+    """Where the shared-memory kernels' quotient (``quotient`` of
+    ``csrc/quotient.cuh``: a / b from the reciprocal of b, with its
+    fallback) and the division differ in a bit: int32 [n], 1 = differs. A
+    check for the card (``chip_smoke.py``); float32 CUDA vectors only."""
+    if a.device.type != "cuda" or a.dtype != torch.float32 or a.shape != b.shape or a.dim() != 1:
+        raise ValueError("division_mismatches takes two float32 CUDA vectors of one length")
+    a, b = a.contiguous(), b.contiguous()
+    out = torch.empty(a.shape, dtype=torch.int32, device=a.device)
+    lib = _load(nz, nc)
+    with torch.cuda.device(a.device):
+        err = lib.admm_division_check_launch(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel(),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"division check launch failed: CUDA error {err}")
+    return out
+
+
 def admm_round(
     Hd, J, K, g, c, dlb, dub, rho, x, z_b, y_d, y_b,
     iters: int, sigma: float, alpha: float, rho_eq_scale: float,
+    route=None,
 ):
     """One ρ-round of the stage-QP ADMM for a batch of lanes (layout in the
-    module docstring). Returns (x', z_b', y_d', y_b', pr [B], dr [B])."""
+    module docstring). Returns (x', z_b', y_d', y_b', pr [B], dr [B]).
+    ``route``: None (the shape rule ``solve_route``); ``'smem'`` / ``'thread'``
+    name a kernel, for checks and measurements."""
     args = (Hd, J, K, g, c, dlb, dub, rho, x, z_b, y_d, y_b)
-    B, Kst, nz, nc = _check_args(args)
+    dims = _check_args(args)
     if iters < 1:
         raise ValueError("iters must be >= 1")
+    scal = (int(iters), float(sigma), float(alpha), float(rho_eq_scale))
     if Hd.device.type == "cpu":
-        return admm_round_plain(*args, iters, sigma, alpha, rho_eq_scale)
-    if Hd.device.type != "cuda":
-        raise RuntimeError(f"admm_round: unsupported device {Hd.device}")
-    _check_cuda_args(args)
-    lib = _load(nz, nc)
-    N, ntri = Kst - 1, nz * (nz + 1) // 2
-    with torch.cuda.device(Hd.device):
-        t, shared = _kernel_operands(args)
-        new = lambda rows: torch.empty(
-            (rows * padded_lanes(B),), dtype=torch.float32, device=Hd.device)
-        Ld, Lo, xt = new(Kst * ntri), new(N * nz * nz), new(Kst * nz)
-        pr, dr = (torch.empty((B,), dtype=torch.float32, device=Hd.device) for _ in range(2))
-        ptrs = ptr_array(t + [Ld, Lo, xt, pr, dr])
-        err = lib.admm_round_launch(
-            ptrs, B, Kst, lane_tile(B), int(shared), int(iters), float(sigma),
-            float(alpha),
-            float(rho_eq_scale), torch.cuda.current_stream().cuda_stream,
-        )
-        LAUNCHES["admm_round"] += 1
-    if err != 0:
-        raise RuntimeError(f"admm_round_kernel launch failed: CUDA error {err}")
-    return (
-        from_kernel_layout(t[8], x.shape), from_kernel_layout(t[9], z_b.shape),
-        from_kernel_layout(t[10], y_d.shape), from_kernel_layout(t[11], y_b.shape),
-        pr, dr,
-    )
+        return admm_round_plain(*args, *scal)
+    return _launch("admm_round", args, dims, scal, route)
 
 
 def boxqp_solve(
@@ -383,11 +559,14 @@ def boxqp_solve(
     n_rounds: int, iters: int, tol: float, sigma: float, alpha: float,
     rho_eq_scale: float, rho_min: float, rho_max: float,
     tol_stat: float = 0.0, tol_feas: float = 0.0,
+    route=None,
 ):
     """Full box-QP ADMM solve (all ρ rounds) for a batch of lanes in one
-    kernel launch. Returns (x, z_b, y_d, y_b, pr [B], dr [B], it [B] float)."""
+    kernel launch. Returns (x, z_b, y_d, y_b, pr [B], dr [B], it [B] float).
+    ``route``: None (the shape rule ``solve_route``); ``'smem'`` / ``'thread'``
+    name a kernel, for checks and measurements."""
     args = (Hd, J, K, g, c, dlb, dub, rho, x, z_b, y_d, y_b)
-    B, Kst, nz, nc = _check_args(args)
+    dims = _check_args(args)
     if iters < 1 or n_rounds < 1:
         raise ValueError("iters and n_rounds must be >= 1")
     scal = (
@@ -397,28 +576,4 @@ def boxqp_solve(
     )
     if Hd.device.type == "cpu":
         return boxqp_solve_plain(*args, *scal)
-    if Hd.device.type != "cuda":
-        raise RuntimeError(f"boxqp_solve: unsupported device {Hd.device}")
-    _check_cuda_args(args)
-    lib = _load(nz, nc)
-    N, ntri = Kst - 1, nz * (nz + 1) // 2
-    with torch.cuda.device(Hd.device):
-        t, shared = _kernel_operands(args)  # g, c copies double as g_s, c_s
-        new = lambda rows: torch.empty(
-            (rows * padded_lanes(B),), dtype=torch.float32, device=Hd.device)
-        Ld, Lo, xt = new(Kst * ntri), new(N * nz * nz), new(Kst * nz)
-        pr, dr, it = (torch.empty((B,), dtype=torch.float32, device=Hd.device) for _ in range(3))
-        xtot = torch.zeros_like(xt)
-        ptrs = ptr_array(t + [Ld, Lo, xt, pr, dr, xtot, it])
-        err = lib.boxqp_solve_launch(
-            ptrs, B, Kst, lane_tile(B), int(shared), *scal,
-            torch.cuda.current_stream().cuda_stream,
-        )
-        LAUNCHES["boxqp_solve"] += 1
-    if err != 0:
-        raise RuntimeError(f"boxqp_solve_kernel launch failed: CUDA error {err}")
-    return (
-        from_kernel_layout(xtot, x.shape), from_kernel_layout(t[9], z_b.shape),
-        from_kernel_layout(t[10], y_d.shape), from_kernel_layout(t[11], y_b.shape),
-        pr, dr, it,
-    )
+    return _launch("boxqp_solve", args, dims, scal, route)

@@ -4,24 +4,28 @@ kernels, their wrapper and their plain PyTorch version.
 Counterpart of the JAX package's ``ops/pallas/btridiag_kernel.py``
 (``btridiag_solve_pallas``: three sweeps, factor in scratch) and
 ``ops/pallas/btridiag_kernel_v2.py`` (``btridiag_solve_pallas_v2``: two
-sweeps, factor written over D and O). One function,
+sweeps, factor kept in the fast memory of the inputs). One function,
 
   ``btridiag_factor_solve(D, O, b, inplace=True)``  →  x = M⁻¹ b,
   M = tridiag(Oᵀ, D, O),  D [B, K, nz, nz], O [B, K-1, nz, nz], b [B, K, nz],
 
-with two kernels behind it (``csrc/btridiag_kernel.cu``, one thread per lane,
-tile-major lane layout; see the source note there): ``inplace=True`` launches
-the two-sweep kernel, ``inplace=False`` the three-sweep one. "In place" is the
-kernel's business: the wrapper copies D and O into the kernels' lane layout
-anyway and hands the kernel those copies, so the caller's tensors are never
-written.
+with the kernels of ``csrc/btridiag_kernel.cu`` behind it (see the source
+note there). ``inplace=True`` is the two-sweep solve. Where the factor of a
+warp's lanes fits shared memory (``solve_route``: every shape the solvers
+meet) it launches the kernel that reads D, O, b batch-first as the caller has
+them, gives nz threads to a lane and keeps the factor on chip: the wrapper
+copies nothing. Longer horizons take the one-thread-per-lane kernel that
+writes its factor over copies of D and O in a tile-major lane layout.
+``inplace=False`` is the three-sweep one-thread-per-lane kernel. The
+caller's tensors are never written on any route.
 
 Dispatch rule: a CPU tensor takes the plain version
 (``btridiag_factor_solve_plain``, the Python-loop recurrences of
-``ops/btridiag.py``); a CUDA tensor launches the kernel or raises — there is
-no fallback when the build or the launch fails. ``LAUNCHES`` counts kernel
-launches per kernel, and nothing else. A block that is not positive definite
-gives NaN in its lane, as the reference's square root does.
+``ops/btridiag.py``); a CUDA tensor launches a kernel or raises — there is
+no fallback when the build or the launch fails, and the route is chosen from
+the shapes, never from a failure. ``LAUNCHES`` counts kernel launches per
+kernel, and nothing else. A block that is not positive definite gives NaN in
+its lane, as the reference's square root does.
 """
 from __future__ import annotations
 
@@ -88,21 +92,73 @@ def io_bytes(K: int, nz: int, B: int) -> int:
 
 
 # --------------------------------------------------------------------------
+# the two routes of the in-place solve, and the rule that picks one
+# --------------------------------------------------------------------------
+
+# Dynamic shared memory one block may ask for on an H100 (227 KB).
+MAX_DYNAMIC_SMEM_BYTES = 232448
+SMEM_ALIGN_FLOATS = 4
+ROUTES = ("smem", "thread")
+
+# what the last launch of each kernel chose (route, block shape, registers)
+LAUNCH_INFO: Dict[str, dict] = {"btridiag_factor_solve": {}, "btridiag_factor_solve_inplace": {}}
+
+
+def _round_up(floats: int) -> int:
+    return -(-floats // SMEM_ALIGN_FLOATS) * SMEM_ALIGN_FLOATS
+
+
+def factor_bytes_per_lane(K: int, nz: int) -> int:
+    """Shared memory one lane takes on the shared-memory route of the
+    in-place solve: the sum of the table ``BT_SMEM_LANE_ARRAYS`` of
+    ``csrc/btridiag_kernel.cu`` (per stage one record of the diagonal factor,
+    packed lower, with the reciprocals of its pivots; the sub-diagonal
+    factors; z), every array rounded up to 16 bytes."""
+    record = nz * (nz + 1) // 2 + nz
+    floats = _round_up(K * record) + _round_up((K - 1) * nz * nz) + _round_up(K * nz)
+    return 4 * floats
+
+
+def lanes_per_warp(nz: int) -> int:
+    """Lanes a warp serves on the shared-memory route: nz threads per lane."""
+    return 32 // nz
+
+
+def solve_route(K: int, nz: int) -> str:
+    """Which kernel ``inplace=True`` takes, from the shape alone: ``'smem'``
+    (nz threads per lane, factor in shared memory) where the lanes of one
+    warp fit the shared memory of a block, ``'thread'`` (one thread per
+    lane, factor written over copies of D and O in device memory) otherwise —
+    long horizons, or blocks wider than a warp."""
+    if nz > 32:
+        return "thread"
+    fits = lanes_per_warp(nz) * factor_bytes_per_lane(K, nz)
+    return "smem" if fits <= MAX_DYNAMIC_SMEM_BYTES else "thread"
+
+
+# --------------------------------------------------------------------------
 # load (built at first use by ops/cuda/build.py)
 # --------------------------------------------------------------------------
 
-def _load(nz: int) -> ctypes.CDLL:
-    def declare(lib):
-        c_i, c_p = ctypes.c_int, ctypes.c_void_p
-        lib.btridiag_kernel_nz.restype, lib.btridiag_kernel_nz.argtypes = c_i, []
-        for fn in (lib.btridiag_factor_solve_launch,
-                   lib.btridiag_factor_solve_inplace_launch):
-            fn.restype = c_i
-            fn.argtypes = [c_p, ctypes.c_longlong, c_i, c_i, c_p]
-        if lib.btridiag_kernel_nz() != nz:
-            raise RuntimeError(f"library built for another nz than {nz}")
+def declare(lib: ctypes.CDLL, nz: int) -> None:
+    """``restype`` / ``argtypes`` of the library's C functions, and a check
+    that it is the nz specialisation."""
+    c_i, c_p, c_ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
+    lib.btridiag_kernel_nz.restype, lib.btridiag_kernel_nz.argtypes = c_i, []
+    lib.btridiag_smem_floats_per_lane.restype = c_i
+    lib.btridiag_smem_floats_per_lane.argtypes = [c_i]
+    for fn in (lib.btridiag_factor_solve_launch,
+               lib.btridiag_factor_solve_inplace_launch):
+        fn.restype = c_i
+        fn.argtypes = [c_p, c_ll, c_i, c_i, c_p]
+    lib.btridiag_factor_solve_smem_launch.restype = c_i
+    lib.btridiag_factor_solve_smem_launch.argtypes = [c_p, c_ll, c_i, c_ll, c_ll, c_ll, c_p, c_p]
+    if lib.btridiag_kernel_nz() != nz:
+        raise RuntimeError(f"library built for another nz than {nz}")
 
-    return build.load(*build_spec(nz), declare)
+
+def _load(nz: int) -> ctypes.CDLL:
+    return build.load(*build_spec(nz), lambda lib: declare(lib, nz))
 
 
 # --------------------------------------------------------------------------
@@ -126,40 +182,106 @@ def _check_args(D, O, b):
     return B, K, nz
 
 
-def btridiag_factor_solve(D, O, b, inplace: bool = True):
+def _lane_strided(a: torch.Tensor):
+    """``a`` [B, ...] as the shared-memory kernel reads it — every lane's
+    array contiguous, lanes any distance apart, 0 included (one copy for the
+    batch) — and that distance in elements. A tensor that already is such is
+    returned as it is; anything else is copied once."""
+    if a.shape[0] > 1 and a.stride(0) == 0:
+        return a[0].contiguous(), 0
+    if not a[0].is_contiguous():
+        a = a.contiguous()
+    return a, (a.stride(0) if a.shape[0] > 1 else 0)
+
+
+def _launch_smem(lib, D, O, b, dims, stream):
+    """Launch the shared-memory-route kernel of the in-place solve on the
+    caller's batch-first tensors (no layout conversion; x allocated
+    batch-first)."""
+    B, K, nz = dims
+    want = factor_bytes_per_lane(K, nz)
+    have = 4 * lib.btridiag_smem_floats_per_lane(K)
+    if have != want:
+        raise RuntimeError(
+            f"btridiag_factor_solve: the kernel carves {have} bytes of shared memory "
+            f"per lane, factor_bytes_per_lane says {want}")
+    (Dk, sD), (Ok, sO), (bk, sb) = (_lane_strided(a) for a in (D, O, b))
+    x = torch.empty((B, K, nz), dtype=b.dtype, device=b.device)
+    info = (ctypes.c_int * 4)()
+    name = "btridiag_factor_solve_inplace"
+    err = lib.btridiag_factor_solve_smem_launch(
+        ptr_array([Dk, Ok, bk, x]), B, K, sD, sO, sb, info, stream)
+    LAUNCHES[name] += 1
+    if err != 0:
+        raise RuntimeError(f"{name}: shared-memory kernel launch failed: CUDA error {err}")
+    LAUNCH_INFO[name] = dict(
+        route="smem", lanes_per_warp=lanes_per_warp(nz), smem_bytes_per_lane=want,
+        smem_bytes_per_block=info[0], blocks=info[1], blocks_per_sm=info[2],
+        registers_per_thread=info[3],
+        resident_lanes_per_sm=info[2] * lanes_per_warp(nz),
+    )
+    return x
+
+
+def _launch_thread(lib, D, O, b, dims, inplace, stream):
+    """Launch a one-thread-per-lane kernel: operands copied into the
+    tile-major lane layout (the in-place kernel writes its factor over those
+    copies), scratch allocated, x converted back."""
+    B, K, nz = dims
+    Dl, Ol, bl = (to_kernel_layout(a) for a in (D, O, b))
+    new = lambda rows: torch.empty(
+        (rows * padded_lanes(B),), dtype=torch.float32, device=D.device)
+    xl = new(K * nz)
+    if inplace:
+        name = "btridiag_factor_solve_inplace"
+        err = lib.btridiag_factor_solve_inplace_launch(
+            ptr_array([Dl, Ol, bl, xl]), B, K, lane_tile(B), stream)
+    else:
+        name = "btridiag_factor_solve"
+        scratch = [new(K * nz * (nz + 1) // 2), new((K - 1) * nz * nz), new(K * nz)]
+        err = lib.btridiag_factor_solve_launch(
+            ptr_array([Dl, Ol, bl, xl] + scratch), B, K, lane_tile(B), stream)
+    LAUNCHES[name] += 1
+    if err != 0:
+        raise RuntimeError(f"{name}_kernel launch failed: CUDA error {err}")
+    LAUNCH_INFO[name] = dict(route="thread", lane_tile=lane_tile(B))
+    return from_kernel_layout(xl, b.shape)
+
+
+def btridiag_factor_solve(D, O, b, inplace: bool = True, route=None):
     """Solve M x = b for a batch of SPD block-tridiagonal M = tridiag(Oᵀ, D, O):
     factor, forward sweep and backward sweep in one kernel launch.
 
     D [B, K, nz, nz] (only the lower triangle of each block is read),
     O [B, K-1, nz, nz], b [B, K, nz] → x [B, K, nz]. Any strides are taken,
-    D and O broadcast over B included. ``inplace`` selects the two-sweep
-    kernel that overwrites its copies of D and O with the factor (the
-    default, what the solvers call) or the three-sweep kernel that keeps the
-    factor in scratch; both give the same x. Float32 only on the card."""
-    B, K, nz = _check_args(D, O, b)
+    D and O broadcast over B included; the caller's tensors are never
+    written. ``inplace=True`` (the default, what the solvers call) is the
+    two-sweep solve that keeps its factor where the backward sweep finds it:
+    in shared memory (``route='smem'``, no copies in the wrapper) where
+    ``solve_route`` says it fits, else over the wrapper's copies of D and O
+    (``route='thread'``). ``inplace=False`` is the three-sweep kernel with the
+    factor in scratch (one thread per lane). ``route=None`` follows the shape
+    rule; naming a route is for checks. Float32 only on the card."""
+    dims = _check_args(D, O, b)
+    B, K, nz = dims
+    if route is not None and route not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES} or None, got {route!r}")
     if D.device.type == "cpu":
         return btridiag_factor_solve_plain(D, O, b)
     if D.device.type != "cuda":
         raise RuntimeError(f"btridiag_factor_solve: unsupported device {D.device}")
     if D.dtype != torch.float32:
         raise TypeError(f"the CUDA kernels take float32, got {D.dtype}")
+    rule = solve_route(K, nz) if inplace else "thread"
+    if route == "smem" and rule != "smem":
+        raise ValueError(
+            "route='smem' needs inplace=True and a factor that fits shared memory "
+            f"({lanes_per_warp(nz)} lanes of {factor_bytes_per_lane(K, nz)} bytes "
+            f"in {MAX_DYNAMIC_SMEM_BYTES})")
+    route = route or rule
     lib = _load(nz)
     with torch.cuda.device(D.device):
-        Dl, Ol, bl = (to_kernel_layout(a) for a in (D, O, b))
-        new = lambda rows: torch.empty(
-            (rows * padded_lanes(B),), dtype=torch.float32, device=D.device)
-        xl = new(K * nz)
         stream = torch.cuda.current_stream().cuda_stream
-        if inplace:
-            name = "btridiag_factor_solve_inplace"
-            err = lib.btridiag_factor_solve_inplace_launch(
-                ptr_array([Dl, Ol, bl, xl]), B, K, lane_tile(B), stream)
-        else:
-            name = "btridiag_factor_solve"
-            scratch = [new(K * nz * (nz + 1) // 2), new((K - 1) * nz * nz), new(K * nz)]
-            err = lib.btridiag_factor_solve_launch(
-                ptr_array([Dl, Ol, bl, xl] + scratch), B, K, lane_tile(B), stream)
-        LAUNCHES[name] += 1
-    if err != 0:
-        raise RuntimeError(f"{name}_kernel launch failed: CUDA error {err}")
-    return from_kernel_layout(xl, b.shape)
+        if route == "smem":
+            return _launch_smem(lib, D, O, b, dims, stream)
+        return _launch_thread(lib, D, O, b, dims, inplace, stream)

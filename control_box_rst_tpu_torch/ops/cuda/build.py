@@ -8,8 +8,8 @@ module is imported; a wrapper asks for its library at its first launch.
 A failed build raises, and so does a missing ``nvcc``.
 
 Libraries go to ``build/cuda_kernels`` at the root of the checkout. The file
-name carries a hash of source, flags and defines, so an edited source
-rebuilds and a stale library is never loaded.
+name carries a hash of source, the headers of ``csrc/`` it includes, flags
+and defines, so an edited source rebuilds and a stale library is never loaded.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -59,9 +60,17 @@ def _flags(defines: Mapping[str, int]) -> Tuple[str, ...]:
     return NVCC_FLAGS + tuple(f"-D{k}={int(v)}" for k, v in sorted(defines.items()))
 
 
+def local_headers(source: pathlib.Path) -> Tuple[pathlib.Path, ...]:
+    """The headers beside ``source`` that it includes by ``#include "name"``
+    (one level: the headers of ``csrc/`` include nothing of ``csrc/``)."""
+    names = re.findall(r'^#include\s+"([^"]+)"', source.read_text(), re.M)
+    return tuple(source.parent / n for n in names)
+
+
 def library_path(source: pathlib.Path, defines: Mapping[str, int]) -> pathlib.Path:
     flags = _flags(defines)
-    tag = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()).hexdigest()[:12]
+    text = b"".join(f.read_bytes() for f in (source, *local_headers(source)))
+    tag = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:12]
     spec = "_".join(f"{k.lower()}{int(v)}" for k, v in sorted(defines.items()))
     return build_dir() / f"lib{source.stem}_{spec}_{tag}.so"
 

@@ -1,12 +1,16 @@
-"""Lane layout of the CUDA kernels' per-lane arrays.
+"""Lane layout of the one-thread-per-lane CUDA kernels.
 
-Every kernel of ``csrc/`` runs one thread per lane (one problem of the batch)
-and keeps each per-lane array tile-major, ``[ceil(B/T), rows, T]``: with
-T = ``LANE_TILE`` a warp is one tile, its 32 threads read 32 neighbouring
-floats at every access, and its share of the array is one contiguous block.
-Batches smaller than a warp take T = 1 (each lane's array contiguous). The
-kernels compile both instances; the wrappers convert in and out with these
-functions, which are plain PyTorch and run on any device.
+The kernels of ``csrc/`` that run one thread per lane (one problem of the
+batch) with the lane's state in device memory — the three-sweep
+block-tridiagonal solve, and the box-QP and in-place block-tridiagonal
+kernels for shapes whose state does not fit shared memory — keep each
+per-lane array tile-major, ``[ceil(B/T), rows, T]``: with T = ``LANE_TILE`` a
+warp is one tile, its 32 threads read 32 neighbouring floats at every access,
+and its share of the array is one contiguous block. Batches smaller than a
+warp take T = 1 (each lane's array contiguous). Those kernels compile both
+instances; their wrappers convert in and out with these functions, which are
+plain PyTorch and run on any device. The shared-memory kernels read and write
+batch-first tensors and do not come here (``ptr_array`` apart).
 """
 from __future__ import annotations
 

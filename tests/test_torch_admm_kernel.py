@@ -186,3 +186,38 @@ def test_lane_invariant_structure_is_passed_once():
     for o, a in zip(ops[:3], at[:3]):
         assert torch.equal(o, a[0].reshape(-1))
     assert ops[3].numel() == at[3][0].numel() * layout.padded_lanes(len(SEEDS))
+
+
+@pytest.mark.parametrize("shape", [(51, 4, 2), (21, 3, 1), (101, 6, 3)],
+                         ids=lambda s: "Kst{}_nz{}_nc{}".format(*s))
+def test_resident_lanes_follow_the_state_size(shape):
+    """The shared-memory route holds whole warps of `LANES_PER_WARP` lanes in
+    the 227 KB of a block; a lane's own J and K cost residency."""
+    per_warp = ak.LANES_PER_WARP
+    shared = ak.resident_lanes_per_sm(*shape, True)
+    per_lane = ak.resident_lanes_per_sm(*shape, False)
+    assert shared % per_warp == 0 and per_lane % per_warp == 0
+    assert 0 < per_lane < shared
+    assert shared * ak.state_bytes_per_lane(*shape, True) <= ak.MAX_DYNAMIC_SMEM_BYTES
+    assert (shared + per_warp) * ak.state_bytes_per_lane(*shape, True) > ak.MAX_DYNAMIC_SMEM_BYTES
+
+
+@pytest.mark.parametrize("route", ["smem", "thread"])
+def test_naming_a_route_changes_nothing_on_the_cpu(route):
+    """`route` names a kernel of the card; a CPU tensor takes the plain
+    version whatever it says, and no launch is recorded."""
+    _, _, at = _args()
+    ak.reset_launch_counts()
+    before = {k: dict(v) for k, v in ak.LAUNCH_INFO.items()}
+    out_w = ak.admm_round(*at, iters=2, **BASE, route=route)
+    for a, b in zip(out_w, ak.admm_round_plain(*at, iters=2, **BASE)):
+        np.testing.assert_array_equal(to_np(a), to_np(b))
+    assert ak.LAUNCHES == {"boxqp_solve": 0, "admm_round": 0}
+    assert ak.LAUNCH_INFO == before
+    with pytest.raises(ValueError):
+        ak.admm_round(*at, iters=0, **BASE, route=route)
+
+
+def test_division_check_is_for_the_card_only():
+    with pytest.raises(ValueError):
+        ak.division_mismatches(torch.ones(4), torch.ones(4), 4, 2)

@@ -142,3 +142,22 @@ def test_work_counts_follow_the_kernel_loops():
     f = [bk.factor_solve_flops(K, 4) for K in (1, 2, 3)]
     assert f[0] == 34 + 2 * 16 and f[2] - f[1] == f[1] - f[0] == 66 + 64 + 80 + 64
     assert bk.factor_solve_flops(51, 4) == 51 * 66 + 50 * 208
+
+
+@pytest.mark.parametrize("route", [None, "smem", "thread"])
+@pytest.mark.parametrize("inplace", [True, False])
+def test_naming_a_route_changes_nothing_on_the_cpu(inplace, route):
+    D, O, b, _ = _system("B5_K13_nz4")
+    args = [torch.from_numpy(a) for a in (D, O, b)]
+    bk.reset_launch_counts()
+    out = bk.btridiag_factor_solve(*args, inplace=inplace, route=route)
+    assert torch.equal(out, bk.btridiag_factor_solve_plain(*args))
+    assert bk.LAUNCHES == {"btridiag_factor_solve": 0, "btridiag_factor_solve_inplace": 0}
+
+
+def test_factor_bytes_at_the_flagship_shapes():
+    """K=51, nz=4: 51 records of 14 floats (rounded up to 716), 50 blocks of
+    16, z 204: 6,880 bytes a lane, eight lanes to a warp, four warps to an SM."""
+    assert bk.factor_bytes_per_lane(51, 4) == 4 * (716 + 800 + 204) == 6880
+    assert bk.lanes_per_warp(4) * bk.factor_bytes_per_lane(51, 4) <= bk.MAX_DYNAMIC_SMEM_BYTES // 4
+    assert bk.solve_route(51, 4) == "smem" and bk.solve_route(1001, 4) == "thread"

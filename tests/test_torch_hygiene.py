@@ -18,6 +18,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "control_box_rst_tpu_torch"
 SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 CUDA_SOURCES = sorted((PKG / "csrc").glob("*.cu"))
+CUDA_HEADERS = sorted(p.name for p in (PKG / "csrc").glob("*.cuh"))
 FORBIDDEN = ("jax", "jaxlib", "control_box_rst_tpu", "triton")
 
 
@@ -47,7 +48,7 @@ def test_cuda_source_has_a_plain_c_interface(path):
 
     text = path.read_text()
     includes = re.findall(r'#include\s*[<"]([^>"]+)[>"]', text)
-    assert includes and set(includes) <= {"cuda_runtime.h", "math_constants.h"}, includes
+    assert includes and set(includes) <= {"cuda_runtime.h", "math_constants.h", *CUDA_HEADERS}, includes
     assert 'extern "C"' in text and "cudaGetLastError()" in text
     assert "control_box_rst_tpu/ops/pallas/" in text
     assert "<<<" in text and "__global__" in text
@@ -57,11 +58,15 @@ def test_cuda_source_has_a_plain_c_interface(path):
 
 def test_every_listed_module_exists():
     assert [p.name for p in CUDA_SOURCES] == ["admm_kernel.cu", "btridiag_kernel.cu"]
+    assert CUDA_HEADERS == ["quotient.cuh"]
+    # a header of csrc/ holds device helpers only: no include, no kernel, no launch
+    header = (PKG / "csrc" / "quotient.cuh").read_text()
+    assert not any(s in header for s in ("#include", "__global__", "<<<", "torch"))
     for rel in (
         "utils/tree.py", "utils/precision.py", "core/types.py", "ops/smallmat.py",
         "ops/btridiag.py", "ops/collocation.py", "ops/cuda/admm_kernel.py",
         "ops/cuda/btridiag_kernel.py", "ops/cuda/build.py", "ops/cuda/layout.py",
-        "csrc/admm_kernel.cu", "csrc/btridiag_kernel.cu",
+        "csrc/admm_kernel.cu", "csrc/btridiag_kernel.cu", "csrc/quotient.cuh",
         "models/base.py", "models/benchmark.py",
         "ocp/problem.py", "ocp/grids.py", "ocp/costs.py", "ocp/transcribe.py",
         "solvers/stage_qp.py", "solvers/sqp.py", "solvers/lm.py",

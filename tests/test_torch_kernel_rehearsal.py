@@ -1,0 +1,196 @@
+"""PyTorch port: the CUDA sources rehearsed on the CPU.
+
+The kernels of ``control_box_rst_tpu_torch/csrc/`` run on the card only, and
+``chip_smoke.py`` holds them against their plain versions there. What can be
+held here is their arithmetic and their control flow: ``tools/cuda_host_shim``
+compiles a ``.cu`` file as host C++ (a block's threads are real threads, a
+warp's ``__syncwarp`` and shuffles go through a barrier), and the wrappers'
+own launch code drives the result with CPU tensors. Held together here, on
+the same numpy inputs from a seed, float32:
+
+  * the shared-memory kernels (a team of threads per lane, persistent blocks,
+    lanes handed out by an atomic counter) against the one-thread-per-lane
+    kernels: same statements in the same order and no FMA contraction on the
+    host, so the same bits;
+  * both against the plain PyTorch versions (x atol 1e-4 over a few ρ-adapted
+    rounds, the per-lane ``it`` equal; 5e-6 for the block-tridiagonal solve,
+    the bound of tests/test_torch_btridiag_kernel.py).
+
+Skipped where there is no g++.
+"""
+import ctypes
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from control_box_rst_tpu_torch.ops.cuda import admm_kernel as ak
+from control_box_rst_tpu_torch.ops.cuda import btridiag_kernel as bk
+
+torch.set_num_threads(1)
+NZ, NC = 4, 2
+BASE = (1e-6, 1.6, 1e3)  # sigma, alpha, rho_eq_scale
+
+
+def _shim_build():
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "tools" / "cuda_host_shim" / "build.py"
+    spec = importlib.util.spec_from_file_location("cuda_host_shim_build", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.build
+
+
+@pytest.fixture(scope="module")
+def libs(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("no g++: the CUDA sources cannot be rehearsed on this machine")
+    build = _shim_build()
+    out = tmp_path_factory.mktemp("cuda_host_shim")
+    admm = ctypes.CDLL(str(build(ak.SOURCE, out / "libadmm.so", [f"-DNZ={NZ}", f"-DNC={NC}"])))
+    ak.declare(admm, NZ, NC)
+    bts = {}
+    for nz in (4, 3):
+        bts[nz] = ctypes.CDLL(str(build(bk.SOURCE, out / f"libbt{nz}.so", [f"-DNZ={nz}"])))
+        bk.declare(bts[nz], nz)
+    return admm, bts
+
+
+def _qps(B, Kst, shared, seed=0):
+    rng = np.random.default_rng(seed)
+    N = Kst - 1
+    A = rng.standard_normal((B, Kst, NZ, NZ)) * 0.3
+    Hd = np.einsum("bkij,bklj->bkil", A, A) + 2.0 * np.eye(NZ)
+    dlb, dub = np.full((B, Kst, NZ), -0.7), np.full((B, Kst, NZ), 0.7)
+    dlb[:, 0, :2] = dub[:, 0, :2] = 0.0  # pins, like a fixed initial state
+    dlb[:, -1, -1] = dub[:, -1, -1] = 0.0
+    z = np.zeros((B, Kst, NZ))
+    arrs = [Hd, rng.standard_normal((B, N, NC, NZ)) * 0.5, rng.standard_normal((B, N, NC, NZ)) * 0.5,
+            rng.standard_normal((B, Kst, NZ)), rng.standard_normal((B, N, NC)) * 0.1, dlb, dub,
+            np.full((B,), 0.1), z, np.clip(z, dlb, dub), np.zeros((B, N, NC)), z]
+    args = [torch.as_tensor(a, dtype=torch.float32) for a in arrs]
+    if shared:
+        args[:3] = [a[0].expand(a.shape) for a in args[:3]]
+    return args
+
+
+@pytest.mark.parametrize("kkt", [False, True], ids=["admm-exit", "kkt-exit"])
+@pytest.mark.parametrize("shared", [False, True], ids=["per-lane-HJK", "shared-HJK"])
+@pytest.mark.parametrize("B", [9, 13, 21])
+def test_boxqp_solve_kernels_on_the_host(libs, B, shared, kkt):
+    """More lanes than the 2 persistent blocks of 2 warps have teams: teams
+    take further lanes from the queue, lanes leave at different rounds."""
+    admm, _ = libs
+    Kst, lanes_per_warp = 7, ak.LANES_PER_WARP
+    args, dims = _qps(B, Kst, shared), (B, Kst, NZ, NC)
+    scal = (6, 4, 2e-4, *BASE, 1e-4, 1e4) + ((5e-4, 5e-5) if kkt else (0.0, 0.0))
+    # a stand-in device small enough that the lanes outnumber the teams
+    max_smem = ctypes.c_int.in_dll(admm, "shim_max_smem")
+    max_smem.value = 2 * lanes_per_warp * ak.state_bytes_per_lane(Kst, NZ, NC, shared)
+    try:
+        smem = ak._launch_smem(admm, "boxqp_solve", args, dims, scal, 0)
+        info = dict(ak.LAUNCH_INFO["boxqp_solve"])
+    finally:
+        max_smem.value = ak.MAX_DYNAMIC_SMEM_BYTES
+    thread = ak._launch_thread(admm, "boxqp_solve", args, dims, scal, 0)
+    plain = ak.boxqp_solve_plain(*args, *scal)
+    assert info["route"] == "smem" and info["warps_per_block"] == 2 and info["blocks"] == 2
+    assert info["blocks"] * info["warps_per_block"] * lanes_per_warp < B
+    for a, b in zip(smem, thread):
+        assert torch.equal(a, b)
+    assert torch.equal(smem[6], plain[6]) and len(set(smem[6].tolist())) > 1
+    np.testing.assert_allclose(smem[0].numpy(), plain[0].numpy(), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("case", [(1, 5), (3, 6), (40, 4), (9, 9)],
+                         ids=lambda c: "B{}_Kst{}".format(*c))
+def test_admm_round_kernels_on_the_host(libs, case):
+    admm, _ = libs
+    B, Kst = case
+    args, dims = _qps(B, Kst, shared=B % 2 == 1, seed=B), (B, Kst, NZ, NC)
+    scal = (3, *BASE)
+    smem = ak._launch_smem(admm, "admm_round", args, dims, scal, 0)
+    thread = ak._launch_thread(admm, "admm_round", args, dims, scal, 0)
+    plain = ak.admm_round_plain(*args, *scal)
+    for a, b in zip(smem, thread):
+        assert torch.equal(a, b)
+    np.testing.assert_allclose(smem[0].numpy(), plain[0].numpy(), rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(smem[4].numpy(), plain[4].numpy(), rtol=1e-2, atol=1e-4)
+
+
+def test_quotient_from_the_reciprocal_is_the_division_on_the_host(libs):
+    """The kernels' quotient against the division, bit for bit (the card runs
+    the same check on 16 M pairs): mantissas and exponents from a seed, zeros,
+    infinities, NaNs and subnormals mixed in."""
+    admm, _ = libs
+    rng = np.random.default_rng(1)
+    n = 200_000
+    def operands():
+        return (rng.choice([-1.0, 1.0], n) * (1 + rng.random(n)) *
+                np.exp2(rng.integers(-100, 101, n))).astype(np.float32)
+    a, b = operands(), np.abs(operands())
+    special = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1e-42, -1e-42, 3.0], np.float32)
+    a[: special.size] = special
+    b[-special.size:] = special
+    a[-special.size:] = special[::-1]
+    a, b = torch.from_numpy(a), torch.from_numpy(b)
+    out = torch.empty(n, dtype=torch.int32)
+    err = admm.admm_division_check_launch(a.data_ptr(), b.data_ptr(), out.data_ptr(), n, 0)
+    assert err == 0 and int(out.sum()) == 0
+
+
+def _spd(B, K, nz, seed=3):
+    rng = np.random.default_rng(seed)
+    D = rng.standard_normal((B, K, nz, nz)).astype(np.float32)
+    D = D @ D.transpose(0, 1, 3, 2) + 10 * np.eye(nz, dtype=np.float32)
+    O = (0.3 * rng.standard_normal((B, K - 1, nz, nz))).astype(np.float32)
+    b = rng.standard_normal((B, K, nz)).astype(np.float32)
+    return [torch.from_numpy(a) for a in (D, O, b)]
+
+
+@pytest.mark.parametrize("nz", [4, 3])
+@pytest.mark.parametrize("shape", [(1, 1), (1, 5), (11, 7), (19, 2), (8, 13)],
+                         ids=lambda s: "B{}_K{}".format(*s))
+def test_btridiag_kernels_on_the_host(libs, shape, nz):
+    """The shared-memory kernel (nz threads per lane) against both
+    one-thread-per-lane kernels and the plain version; ragged last warps, a
+    single stage, 32 % nz != 0."""
+    _, bts = libs
+    B, K = shape
+    D, O, b = _spd(B, K, nz)
+    dims = (B, K, nz)
+    x_smem = bk._launch_smem(bts[nz], D, O, b, dims, 0)
+    x_two = bk._launch_thread(bts[nz], D, O, b, dims, True, 0)
+    x_three = bk._launch_thread(bts[nz], D, O, b, dims, False, 0)
+    assert torch.equal(x_smem, x_two) and torch.equal(x_two, x_three)
+    np.testing.assert_allclose(
+        x_smem.numpy(), bk.btridiag_factor_solve_plain(D, O, b).numpy(), rtol=0, atol=5e-6)
+
+
+@pytest.mark.parametrize("case", ["broadcast", "strided-lanes", "transposed-b", "not-spd"])
+def test_btridiag_shared_memory_kernel_takes_operands_as_they_are(libs, case):
+    _, bts = libs
+    nz = 4
+    D, O, b = _spd(9, 6, nz, seed=5)
+    if case == "broadcast":
+        D, O = D[0].expand(D.shape), O[0].expand(O.shape)
+    elif case == "strided-lanes":
+        D, O, b = D[::2], O[::2], b[::2]
+    elif case == "transposed-b":
+        b = b.transpose(0, 1).contiguous().transpose(0, 1)
+    else:
+        D = D.clone()
+        D[2, 3] = -torch.eye(nz)
+    before = [a.clone() for a in (D, O, b)]
+    x = bk._launch_smem(bts[nz], D, O, b, (D.shape[0], 6, nz), 0)
+    assert all(torch.equal(a, c) for a, c in zip((D, O, b), before))  # inputs are read only
+    want = bk.btridiag_factor_solve_plain(D, O, b)
+    if case == "not-spd":
+        # a negative pivot gives NaN in its lane, and in no other
+        assert bool(torch.isnan(x[2]).any()) and bool(torch.isnan(want[2]).any())
+        keep = [0, 1, 3, 4, 5, 6, 7, 8]
+        x, want = x[keep], want[keep]
+    np.testing.assert_allclose(x.numpy(), want.numpy(), rtol=0, atol=5e-6)
