@@ -29,15 +29,17 @@ Phases
              outer SQP iteration, the shared-memory kernels against the
              one-thread-per-lane kernels on the same inputs, times and
              roofline bounds.
-             Block-tridiagonal factor-and-solve kernels (three sweeps; two
-             sweeps, factor kept on chip) vs plain version at K=51, nz=4,
-             B=32768: random SPD systems (atol 5e-6), the damped Gauss-Newton
-             systems of LM's first and of a late iteration on the config-1
-             batch (as close to the float64 plain version as the float32
-             plain version), B=1, B=8 (every kernel, the one-thread-per-lane
-             two-sweep kernel included) and a batch not divisible by 32,
-             K=1001 (the shape rule), the kernels against each other, times,
-             bounds and the dense library call as a yardstick
+             Block-tridiagonal factor-and-solve kernels (K3: one thread per
+             lane, factor in a scratch; K4: factor kept on chip) vs plain
+             version at K=51, nz=4, B=32768: random SPD systems (atol 5e-6),
+             the damped Gauss-Newton systems of LM's first and of a late
+             iteration on the config-1 batch (as close to the float64 plain
+             version as the float32 plain version), B=1, B=8 (every kernel,
+             the one-thread-per-lane in-place kernel included) and a batch
+             not divisible by 32, D and O broadcast, lanes a stride apart,
+             the caller's D and O untouched, K=1001, the kernels against each
+             other, wrapper and kernel-alone times on random and on LM's
+             systems, bounds and the dense library call as a yardstick
   4 main     the batched SQP solve; gates: converged fraction >= 0.99, max
              |U - U_oracle| <= 1e-3 on the first 64 lanes (f64 oracle golden
              file), kernel launch counter > 0; solves/s, mean SQP iterations,
@@ -46,7 +48,7 @@ Phases
              converged fraction >= 0.99, launch counter > 0, and on the first
              64 lanes U and chi2 as close to the f64 LM golden file as the
              reference's own float32 LM (stored in that file); then the same
-             batch through the three-sweep kernel, held to the same gates
+             batch through K3 (inplace=False), held to the same gates
              (float32 LM is path-dependent: a bit of difference in a step can
              flip an accept test, so the two passes are not held to each
              other; their difference is reported)
@@ -54,7 +56,8 @@ Phases
 
 Output: progress lines (with ``--profile`` a ``{"profile": ...}`` line with the
 device time by kernel and the hand-written kernels launch by launch, and a
-``{"kernels_alone_ms": ...}`` line with every kernel, old and new, by itself),
+``{"kernels_alone_ms": ...}`` line with K1 and K2 on both routes and K4's
+one-thread-per-lane route by themselves),
 then a ``{"main": ...}`` line, a ``{"lm": ...}`` line, the nvidia-smi line, a
 ``{"kernels": [...]}`` line (per kernel the contract's keys and, where a
 kernel was redesigned, ``earlier_ms`` / ``vs_earlier``: the kernel it replaced
@@ -618,11 +621,35 @@ def dense_library_ms(D, O, b, x_ref, reps):
     raise RuntimeError("the dense library solve fits at no batch size")
 
 
+def kernels_alone_ms(calls, reps: int):
+    """Device milliseconds per launch of the hand-written kernel each call
+    launches, by itself: ``calls`` maps label -> (fn, kernel-name tag);
+    torch.profiler over ``reps`` calls after a warm-up, the device time of the
+    kernels whose name holds the tag over the launches the profiler recorded
+    (it may record fewer than were made)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for label, (fn, tag) in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if tag in e.key]
+        launches = sum(e.count for e in events)
+        if launches == 0:
+            raise AssertionError(f"{label}: the profiler recorded no launch of {tag}")
+        out[label] = sum(e.device_time_total for e in events) / 1e3 / launches
+    return out
+
+
 def phase_btridiag_kernels(ocp, lm_cfg, x0s_all, reps: int):
     """The block-tridiagonal factor-and-solve kernels against their plain
-    version; returns their records (three-sweep kernel first). The two-sweep
-    solve takes its shared-memory kernel at these shapes; the one-thread-per-
-    lane kernel it replaced there is run beside it under its route's name.
+    version; returns their records (K3 first). The in-place solve takes its
+    shared-memory kernel at these shapes; the one-thread-per-lane kernel it
+    replaced there is run beside it under its route's name.
 
     On well-conditioned random SPD systems kernel and float32 plain version
     must agree to atol 5e-6 (the bound of the JAX package's own kernel test).
@@ -661,8 +688,13 @@ def phase_btridiag_kernels(ocp, lm_cfg, x0s_all, reps: int):
     d34 = float((x_kern["btridiag_factor_solve"] - x_kern["btridiag_factor_solve_inplace"]).abs().max())
     if not d34 <= 1e-6:
         raise AssertionError(f"the two block-tridiagonal kernels differ by {d34:.3e} > 1e-6")
-    errs["random/three_sweeps_vs_inplace"] = d34
-    name4 = "btridiag_factor_solve_inplace"
+    errs["random/k3_vs_k4"] = d34
+    errs["random/k3_bit_equal_k4"] = torch.equal(
+        x_kern["btridiag_factor_solve"], x_kern["btridiag_factor_solve_inplace"])
+    name3, name4 = "btridiag_factor_solve", "btridiag_factor_solve_inplace"
+    k3_info = dict(bk.LAUNCH_INFO[name3])
+    if k3_info.get("route") != "scratch":
+        raise AssertionError(f"{name3}: expected K3's scratch kernel, took {k3_info}")
     k4_info = dict(bk.LAUNCH_INFO[name4])
     if k4_info.get("route") != "smem" or bk.solve_route(K, nz) != "smem":
         raise AssertionError(f"{name4}: expected the shared-memory route, took {k4_info}")
@@ -684,6 +716,8 @@ def phase_btridiag_kernels(ocp, lm_cfg, x0s_all, reps: int):
             x_n = fn(D[:n], O[:n], b[:n])
             torch.cuda.synchronize()
             if not torch.equal(x_n, x_kern[name][:n]):
+                if name == name3:  # one code path for a lane, whatever the batch
+                    raise AssertionError(f"{name3}: B={n} disagrees with the first lanes")
                 errs[f"random/{name}_B{n}"] = assert_close(
                     f"{name} B={n}", x_n, x_plain[:n], rtol=0.0, atol=5e-6)
         if n < 32 and bk.LAUNCH_INFO[name4] != dict(route="thread", lane_tile=1):
@@ -691,40 +725,53 @@ def phase_btridiag_kernels(ocp, lm_cfg, x0s_all, reps: int):
     del x_thread, x_kern[f"{name4}_thread"]
     # D and O broadcast over the batch (stride 0) are taken as they are
     De, Oe = D[0].expand(D[:64].shape), O[0].expand(O[:64].shape)
-    x_b = solve["btridiag_factor_solve_inplace"](De, Oe, b[:64])
-    torch.cuda.synchronize()
-    assert_close("broadcast D/O", x_b, bk.btridiag_factor_solve_plain(De, Oe, b[:64]),
-                 rtol=0.0, atol=5e-6)
-    # the caller's D and O are not written by the in-place kernel
+    x_want = bk.btridiag_factor_solve_plain(De, Oe, b[:64])
+    for name, fn in solve.items():
+        x_b = fn(De, Oe, b[:64])
+        torch.cuda.synchronize()
+        errs[f"random/{name}_broadcast_DO"] = assert_close(
+            f"{name} broadcast D/O", x_b, x_want, rtol=0.0, atol=5e-6)
+    # the caller's D and O are not written by any kernel
     D_before, O_before = D[:64].clone(), O[:64].clone()
-    for route in bk.ROUTES:
-        bk.btridiag_factor_solve(D[:64], O[:64], b[:64], route=route)
+    for label, fn in [(f"{name4} route {r}", lambda D, O, b, r=r: bk.btridiag_factor_solve(
+            D, O, b, route=r)) for r in bk.ROUTES] + [(name3, solve[name3])]:
+        fn(D[:64], O[:64], b[:64])
         torch.cuda.synchronize()
         if not torch.equal(D[:64], D_before) or not torch.equal(O[:64], O_before):
-            raise AssertionError(f"the in-place solve (route {route}) wrote to the caller's D or O")
+            raise AssertionError(f"{label} wrote to the caller's D or O")
     # lanes a stride apart (every other lane of the batch), taken as they are
-    x_s = solve[name4](D[:128:2], O[:128:2], b[:128:2])
-    torch.cuda.synchronize()
-    if not torch.equal(x_s, x_kern[name4][:128:2]):
-        raise AssertionError(f"{name4}: strided lanes disagree with the same lanes of the batch")
-    # ---- the shape rule: a factor too long for shared memory ----
+    for name, fn in solve.items():
+        x_s = fn(D[:128:2], O[:128:2], b[:128:2])
+        torch.cuda.synchronize()
+        if not torch.equal(x_s, x_kern[name][:128:2]):
+            raise AssertionError(f"{name}: strided lanes disagree with the same lanes of the batch")
+    # ---- a long horizon: K4's shape rule picks its one-thread-per-lane
+    # kernel, K3 has one kernel for every shape ----
     if bk.solve_route(LONG_KST, nz) != "thread":
         raise AssertionError(f"the shape rule keeps K={LONG_KST} in shared memory")
     Dl, Ol, bl = random_spd_systems(LONG_BATCH, LONG_KST, nz, dev)
-    x_l = solve[name4](Dl, Ol, bl)
-    torch.cuda.synchronize()
-    if bk.LAUNCH_INFO[name4].get("route") != "thread":
-        raise AssertionError(f"{name4} K={LONG_KST}: took {bk.LAUNCH_INFO[name4]}")
-    errs[f"random/{name4}_K{LONG_KST}"] = assert_close(
-        f"{name4} K={LONG_KST}", x_l, bk.btridiag_factor_solve_plain(Dl, Ol, bl), rtol=0.0, atol=5e-6)
-    del Dl, Ol, bl, x_l
+    x_lp = bk.btridiag_factor_solve_plain(Dl, Ol, bl)
+    for name, fn in solve.items():
+        x_l = fn(Dl, Ol, bl)
+        torch.cuda.synchronize()
+        want_route = "thread" if name == name4 else "scratch"
+        if bk.LAUNCH_INFO[name].get("route") != want_route:
+            raise AssertionError(f"{name} K={LONG_KST}: took {bk.LAUNCH_INFO[name]}")
+        errs[f"random/{name}_K{LONG_KST}"] = assert_close(
+            f"{name} K={LONG_KST}", x_l, x_lp, rtol=0.0, atol=5e-6)
+    del Dl, Ol, bl, x_l, x_lp
 
     # ---- times, bounds, library yardstick (random systems, full batch) ----
     ms = {name: time_ms(lambda fn=fn: fn(D, O, b), reps) for name, fn in solve.items()}
     earlier_ms = time_ms(lambda: bk.btridiag_factor_solve(D, O, b, route="thread"), reps)
-    ms[name4] = min(ms[name4], time_ms(lambda: solve[name4](D, O, b), reps))
+    for name, fn in solve.items():
+        ms[name] = min(ms[name], time_ms(lambda fn=fn: fn(D, O, b), reps))
     earlier_ms = min(earlier_ms, time_ms(
         lambda: bk.btridiag_factor_solve(D, O, b, route="thread"), reps))
+    tags = {name3: "btridiag_factor_solve_scratch_kernel",
+            name4: "btridiag_factor_solve_smem_kernel"}
+    alone = kernels_alone_ms({name: (lambda fn=fn: fn(D, O, b), tags[name])
+                              for name, fn in solve.items()}, reps)
     lib_ms, lib_B = dense_library_ms(D, O, b, x_kern["btridiag_factor_solve_inplace"], 2)
     t_bytes = bk.io_bytes(K, nz, B) / PEAK_BYTES_PER_S * 1e3
     t_ops = B * bk.factor_solve_flops(K, nz) / PEAK_FP32_PER_S * 1e3
@@ -733,6 +780,7 @@ def phase_btridiag_kernels(ocp, lm_cfg, x0s_all, reps: int):
     # ---- (ii) LM's own systems on the config-1 batch ----
     systems = lm_systems(ocp, lm_cfg, x0s_all, (0, LM_LATE_ITERATION))
     lm_errs = {name: {} for name in solve}
+    lm_ms = {name: {} for name in solve}
     for it, (Dmu, O, g) in systems.items():
         x_p = bk.btridiag_factor_solve_plain(Dmu, O, g)
         x_d = bk.btridiag_factor_solve_plain(Dmu.double(), O.double(), g.double())
@@ -750,7 +798,17 @@ def phase_btridiag_kernels(ocp, lm_cfg, x0s_all, reps: int):
             lm_errs[name][f"it{it}"] = dict(
                 err_vs_f64=e_k, plain_err_vs_f64=e_p, x_max=float(x_d[ok].abs().max()),
                 nonfinite_lanes=lost_k, plain_nonfinite_lanes=lost_p)
-    log(f"btridiag kernels[{B} lanes]: " + json.dumps({**errs, "lm_systems": lm_errs}))
+            # times on LM's own systems (a third of the lanes NaN late in a solve)
+            lm_ms[name][f"it{it}"] = dict(
+                ms=time_ms(lambda fn=fn: fn(Dmu, O, g), reps),
+                alone_ms=kernels_alone_ms({name: (lambda fn=fn: fn(Dmu, O, g), tags[name])},
+                                          reps)[name])
+    # K3's own traffic floor (two sweeps): inputs and x once, the scratch
+    # written once and read back once
+    design_floor_ms = B * (bk.io_bytes(K, nz, 1) + 2 * bk.scratch_bytes_per_lane(K, nz)) \
+        / PEAK_BYTES_PER_S * 1e3
+    log(f"btridiag kernels[{B} lanes]: " + json.dumps(
+        {**errs, "k3_design_floor_ms": design_floor_ms, "lm_systems": lm_errs}))
 
     replaces = {
         "btridiag_factor_solve": "control_box_rst_tpu/ops/pallas/btridiag_kernel.py:194",
@@ -760,12 +818,12 @@ def phase_btridiag_kernels(ocp, lm_cfg, x0s_all, reps: int):
         name=name, route="cuda",
         source="control_box_rst_tpu_torch/csrc/btridiag_kernel.cu",
         replaces=replaces[name], launches=0, max_abs_err=max_err[name],
-        ms=ms[name], plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
+        ms=ms[name], alone_ms=alone[name], plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
         bound_by="operations" if t_ops >= t_bytes else "bytes",
         library_ms=lib_ms, library_batch=lib_B, on_main_path=True, batch=B,
-        earlier_ms=None, launch=dict(route="thread"),
+        earlier_ms=None, launch=k3_info,
         bound_bytes_ms=t_bytes, bound_ops_ms=t_ops,
-        three_sweeps_vs_inplace=d34, lm_systems=lm_errs[name],
+        k3_vs_k4=d34, lm_systems=lm_errs[name], lm_systems_ms=lm_ms[name],
     ) for name in solve]
     records[1].update(earlier_ms=earlier_ms, vs_earlier=vs_earlier, launch=k4_info)
     return records
@@ -873,7 +931,7 @@ def lm_quality(label, U, chi2, x0s_np):
 
 def phase_lm(ocp, cfg, x0s_np, trials: int):
     """The batched LM solve of config 1 through the in-place kernel, then once
-    more through the three-sweep kernel; returns the launch counts of the two
+    more through K3 (``inplace=False``); returns the launch counts of the two
     runs and the record of the ``{"lm": ...}`` line.
 
     Gates. The float64 LM of the reference is the golden file; but float32 LM
@@ -928,7 +986,7 @@ def phase_lm(ocp, cfg, x0s_np, trials: int):
         torch.cuda.synchronize()
         best = min(best, time.perf_counter() - t0)
 
-    # the same batch through the three-sweep kernel, held to the same gates.
+    # the same batch through K3, held to the same gates.
     # The two passes are not held to each other: float32 LM is path-dependent
     # (one bit in a step can flip an accept or stall test, and the penalty
     # weights a lane ends with decide its answer), so what is promised is the
@@ -939,17 +997,17 @@ def phase_lm(ocp, cfg, x0s_np, trials: int):
     torch.cuda.synchronize()
     launches3 = dict(bk.LAUNCHES)
     if launches3["btridiag_factor_solve"] <= 0 or launches3["btridiag_factor_solve_inplace"] != 0:
-        raise AssertionError(f"LM path (three sweeps): unexpected kernel launches {launches3}")
+        raise AssertionError(f"LM path (K3): unexpected kernel launches {launches3}")
     if not bool(torch.isfinite(U3).all()):
-        raise AssertionError("LM path (three sweeps): non-finite U")
+        raise AssertionError("LM path (K3): non-finite U")
     conv3 = float((status3 == 1).float().mean())
     if conv3 < CONV_GATE:
-        raise AssertionError(f"LM (three sweeps) converged_frac {conv3:.4f} < {CONV_GATE}")
-    quality3 = lm_quality("three sweeps", U3, chi2_3, x0s_np)
+        raise AssertionError(f"LM (K3) converged_frac {conv3:.4f} < {CONV_GATE}")
+    quality3 = lm_quality("K3", U3, chi2_3, x0s_np)
     du3 = float((U3 - U).abs().max())
     same_status3 = float((status3 == status).float().mean())
     same_iters3 = float((iters3 == iters).float().mean())
-    log(f"lm, three sweeps vs in place: max |dU| {du3:.3e}, status equal on "
+    log(f"lm, K3 vs K4: max |dU| {du3:.3e}, status equal on "
         f"{same_status3:.5f} of lanes, iterations equal on {same_iters3:.5f}")
 
     x0_1 = x0s[:1]
@@ -970,13 +1028,13 @@ def phase_lm(ocp, cfg, x0s_np, trials: int):
         batch=B, solves_per_s=B / best, batch_solve_ms=best * 1e3,
         converged_frac=conv, mean_lm_iters=float(iters.float().mean()),
         max_lm_iters=int(iters.max()), max_feas_res=float(feas.max()),
-        launches=counts, kernel_route=route["route"], max_du_three_sweeps_vs_inplace=du3,
-        status_equal_frac_three_sweeps_vs_inplace=same_status3,
-        iters_equal_frac_three_sweeps_vs_inplace=same_iters3,
-        converged_frac_three_sweeps=conv3,
-        three_sweeps_u_err_median=quality3["u_err_median"],
-        three_sweeps_u_err_mean=quality3["u_err_mean"],
-        three_sweeps_u_err_max=quality3["u_err_max"],
+        launches=counts, kernel_route=route["route"], max_du_k3_vs_k4=du3,
+        status_equal_frac_k3_vs_k4=same_status3,
+        iters_equal_frac_k3_vs_k4=same_iters3,
+        converged_frac_k3=conv3,
+        k3_u_err_median=quality3["u_err_median"],
+        k3_u_err_mean=quality3["u_err_mean"],
+        k3_u_err_max=quality3["u_err_max"],
         peak_device_memory_gib=peak_gb, **quality,
         p50_single_solve_ms=float(np.percentile(np.asarray(lats), 50) * 1e3),
         p99_single_solve_ms=float(np.percentile(np.asarray(lats), 99) * 1e3),
@@ -984,12 +1042,12 @@ def phase_lm(ocp, cfg, x0s_np, trials: int):
 
 
 def profile_kernels_alone(ocp, cfg, x0s_all):
-    """Every hand-written kernel by itself under torch.profiler, at the main
-    paths' shapes: K1 (production exits) and K2 on both routes on the config-1
-    QPs, K3 and K4 (both routes) on random SPD systems. Returns kernel name ->
-    milliseconds (mean of 3 launches each)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """The kernels that no phase times by itself, alone under torch.profiler
+    at the main paths' shapes: K1 (production exits) and K2 on both routes
+    on the config-1 QPs, K4's one-thread-per-lane route on random SPD systems
+    (K3 and K4's shared-memory kernel are timed alone in every run by
+    ``phase_btridiag_kernels``). Returns label -> milliseconds per launch
+    (over 3 calls each)."""
     from control_box_rst_tpu_torch.ops.cuda import admm_kernel as ak
     from control_box_rst_tpu_torch.ops.cuda import btridiag_kernel as bk
 
@@ -1002,22 +1060,16 @@ def profile_kernels_alone(ocp, cfg, x0s_all):
         tol_stat=cfg.tol_stat, tol_feas=cfg.tol_feas)
     args = config1_qps(ocp, x0s_all)
     D, O, b = random_spd_systems(x0s_all.shape[0], ocp.N + 1, ocp.nz, x0s_all.device)
-    calls = [lambda r=r: ak.boxqp_solve(*args, **prod_kw, route=r) for r in ak.ROUTES]
-    calls += [lambda r=r: ak.admm_round(*args, iters=iters, **base, route=r) for r in ak.ROUTES]
-    calls += [lambda r=r: bk.btridiag_factor_solve(D, O, b, route=r) for r in bk.ROUTES]
-    calls += [lambda: bk.btridiag_factor_solve(D, O, b, inplace=False)]
-    for call in calls:
-        call()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for call in calls:
-            for _ in range(3):
-                call()
-        torch.cuda.synchronize()
-    return {
-        e.key.split("(")[0][:60]: e.device_time_total / e.count / 1e3
-        for e in prof.key_averages()
-        if any(tag in e.key for tag in ("boxqp_solve", "admm_round", "btridiag_factor_solve"))}
+    calls = {}
+    for r in ak.ROUTES:
+        calls[f"boxqp_solve route={r}"] = (
+            lambda r=r: ak.boxqp_solve(*args, **prod_kw, route=r), "boxqp_solve")
+        calls[f"admm_round route={r}"] = (
+            lambda r=r: ak.admm_round(*args, iters=iters, **base, route=r), "admm_round")
+    calls["btridiag_factor_solve_inplace route=thread"] = (
+        lambda: bk.btridiag_factor_solve(D, O, b, route="thread"),
+        "btridiag_factor_solve_inplace_kernel")
+    return kernels_alone_ms(calls, 3)
 
 
 def phase_profile(solvers, x0s_np, top: int = 14):
@@ -1127,7 +1179,7 @@ def main() -> int:
         lm3 = make_batched_lm_solver(ocp, lm_cfg, dt_init=0.1, inplace=False)
         log(json.dumps({"profile": phase_profile(
             {"batch": (sqp, BATCH), "single": (sqp, 1), "lm_batch": (lm, BATCH),
-             "lm_batch_three_sweeps": (lm3, BATCH)},
+             "lm_batch_k3": (lm3, BATCH)},
             x0s_np)}))
         log(json.dumps({"kernels_alone_ms": profile_kernels_alone(ocp_dev, cfg, x0s_dev)}))
 

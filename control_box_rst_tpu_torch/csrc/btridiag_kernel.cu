@@ -5,8 +5,8 @@
 // ------------------
 // The JAX package's two Pallas TPU kernels that compute x = M^-1 b for a batch
 // of SPD block-tridiagonal M = tridiag(O', D, O) from D, O, b in one call:
-//   btridiag_factor_solve_kernel  (K3)  <-  control_box_rst_tpu/ops/pallas/
-//       btridiag_kernel.py, btridiag_solve_pallas / _factor_solve_kernel:
+//   btridiag_factor_solve_scratch_kernel  (K3)  <-  control_box_rst_tpu/ops/
+//       pallas/btridiag_kernel.py, btridiag_solve_pallas / _factor_solve_kernel:
 //       three sweeps over the K stages (factor M = L L', then L z = b, then
 //       L' x = z), the factor and z kept in scratch beside the inputs;
 //   btridiag_factor_solve_smem_kernel and btridiag_factor_solve_inplace_kernel
@@ -63,15 +63,37 @@
 // best a wgmma tile offers) keeps three decimal digits where LM's accept test
 // needs seven.
 //
-// K3, and K4 for shapes whose factor does not fit: one thread per lane
-// --------------------------------------------------------------------
-// btridiag_factor_solve_kernel (three sweeps, factor in scratch) and
+// K4 for shapes whose factor does not fit: one thread per lane
+// -----------------------------------------------------------
 // btridiag_factor_solve_inplace_kernel (two sweeps, factor written over the
 // wrapper's copies of D and O, next stage's loads issued before the current
 // stage's stores). NZ is a compile-time constant, per-lane arrays are
 // tile-major [ceil(B/T)][rows][T] with T = 32 (a warp reads 32 neighbouring
 // floats per access) or T = 1 (batches smaller than a warp); the wrapper
 // converts layouts with torch and owns every buffer.
+//
+// K3: one thread per lane, operands batch-first, factor in a scratch
+// ------------------------------------------------------------------
+// btridiag_factor_solve_scratch_kernel reads D, O, b batch-first as the
+// shared-memory kernel does (base pointer and lane stride, 0 for a D or O
+// shared by all lanes) and writes x batch-first: the wrapper converts no
+// layout. Every lane has a thread of its own, with registers and no shared
+// memory, so the whole batch is in flight at once. A lane's 4x4 block is 64
+// contiguous bytes, read as four 16-byte loads issued together (both 32-byte
+// sectors used). The factor (diagonal blocks packed lower, sub-diagonal
+// blocks) and z go to a scratch the wrapper allocates (table
+// K3_SCRATCH_LANE_ARRAYS, 6,056 B per lane at K=51, NZ=4), tile-major by 32
+// lanes so that a warp stores and reloads 128 contiguous bytes per element.
+// Two sweeps: the factor sweep also solves z, one stage behind, beside X from
+// the same factor, and the backward sweep reads factor and z back (a sweep of
+// its own for z, as the TPU kernel has, was 15-20 % slower on an H100: 5,240 B
+// more per lane). The next stage's loads are in flight while a stage is
+// computed, and each asks the L2 for the 128 bytes around it, so that one
+// access to device memory brings a lane's next stage too (10 % faster than no
+// hint; 256 B and a deeper prefetch were no better). Quotients come from the
+// pivots' reciprocals (quotient<>), which the backward sweep recomputes rather
+// than stores. tools/chip_probes/k3_variants.py builds and times those choices
+// from a copy of this source.
 //
 // What bounds them on this card
 // -----------------------------
@@ -81,16 +103,19 @@
 // paper. But a lane is one dependent chain over the stages (the factor of
 // stage k needs the factor of stage k-1: per stage NZ divisions, then NZ
 // square roots and NZ more divisions, each waiting for the last), so what a
-// launch really waits for is latency, and the cure is lanes in flight. The
-// one-thread-per-lane kernels have the whole batch in flight but pay a round
-// trip to device memory per stage and, in the wrapper, a transposition of
-// 265 MB. The shared-memory route pays neither, and is bound by how many
-// lanes the 227 KB of an SM hold (32 at the shapes above, four warps) times
-// the latency of a lane's chain: a warp alone on its scheduler is issued an
+// launch waits for is latency unless enough lanes are in flight to cover it.
+// The shared-memory route of K4 holds 32 lanes per SM (the 227 KB of an SM at
+// the shapes above, four warps); a warp alone on its scheduler is issued an
 // instruction every ~3 cycles, a stage is ~350 of them, and the kernel by
 // itself is slower than the one-thread-per-lane kernel with its 248 lanes
-// per SM in flight (0.52 against 0.31 ms on an H100 at B=32768). What the
-// route saves is the wrapper's copies.
+// per SM in flight (0.52 against 0.31 ms on an H100 at B=32768). What that
+// route saves is the wrapper's copies. K3 keeps every lane in flight and
+// makes no copy, and pays for it with the scratch: 20,208 B per lane in all,
+// 662 MB at B=32768 -- a traffic floor of 0.198 ms at 3.35 TB/s. It takes
+// 0.28 ms (2.4 TB/s), where the in-place one-thread-per-lane kernel moves the
+// same bytes in 0.22 ms from its tile-major copies: what is left is the
+// batch-first operands, read as 64-byte pieces 3 KB apart instead of whole
+// 128-byte lines.
 //
 // No -use_fast_math: pivots are divided by and square-rooted.
 
@@ -306,73 +331,6 @@ __device__ __forceinline__ void copy_vec(float (&dst)[NZ], const float (&src)[NZ
     for (int i = 0; i < NZ; ++i) dst[i] = src[i];
 }
 
-// Three sweeps: factor into the scratch (Ld packed lower, Lo), forward
-// substitution into the scratch z, backward substitution into x. D, O, b are
-// read only.
-template <int T>
-__global__ void __launch_bounds__(BLOCK_THREADS)
-btridiag_factor_solve_kernel(const float* __restrict__ D, const float* __restrict__ O,
-                             const float* __restrict__ b, float* __restrict__ x,
-                             float* __restrict__ Ld, float* __restrict__ Lo,
-                             float* __restrict__ z, long long B, int K) {
-    const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (lane >= B) return;
-    D += lane_offset<T>(lane, K * NZ * NZ);
-    O += lane_offset<T>(lane, (K - 1) * NZ * NZ);
-    Lo += lane_offset<T>(lane, (K - 1) * NZ * NZ);
-    Ld += lane_offset<T>(lane, K * NTRI);
-    b += lane_offset<T>(lane, K * NZ);
-    z += lane_offset<T>(lane, K * NZ);
-    x += lane_offset<T>(lane, K * NZ);
-
-    // ---- sweep 1: M = L L' ----
-    {
-        float L[NZ][NZ] = {};
-        for (int k = 0; k < K; ++k) {
-            float S[NZ][NZ];
-            load_lower<T>(D, k, S);
-            if (k > 0) {
-                float Ob[NZ][NZ], X[NZ][NZ];
-                load_block<T>(O, k - 1, Ob);
-                solve_lower_block(L, Ob, X);
-                schur_update(S, X);
-                store_block_transposed<T>(Lo, k - 1, X);
-            }
-            chol_block(S, L);
-            store_packed<T>(Ld, k, L);
-        }
-    }
-    // ---- sweep 2: L z = b ----
-    float v[NZ] = {};
-    for (int k = 0; k < K; ++k) {
-        float r[NZ], L[NZ][NZ];
-        load_vec<T>(b, k, r);
-        load_packed<T>(Ld, k, L);
-        if (k > 0) {
-            float Lb[NZ][NZ];
-            load_block<T>(Lo, k - 1, Lb);
-            sub_mat_vec(r, Lb, v);
-        }
-        solve_lower_vec(L, r, v);
-        store_vec<T>(z, k, v);
-    }
-    // ---- sweep 3: L' x = z (v holds z of the last stage) ----
-    for (int k = K - 1; k >= 0; --k) {
-        float r[NZ], L[NZ][NZ];
-        load_packed<T>(Ld, k, L);
-        if (k == K - 1) {
-            copy_vec(r, v);
-        } else {
-            float Lb[NZ][NZ];
-            load_vec<T>(z, k, r);
-            load_block<T>(Lo, k, Lb);
-            sub_matT_vec(r, Lb, v);
-        }
-        solve_upperT_vec(L, r, v);
-        store_vec<T>(x, k, v);
-    }
-}
-
 // Two sweeps, in place: the forward sweep factors stage k, substitutes it at
 // once (L and X are in registers) and writes the factor over D (lower
 // triangle) and O; z goes to x, and the backward sweep turns it into the
@@ -452,30 +410,12 @@ extern "C" {
 
 int btridiag_kernel_nz() { return NZ; }
 
-// p: host array of device pointers to float32 arrays in the lane layout above
-// with tile width lane_tile (32 or 1), in this order:
-//   0 D [K*NZ*NZ, B]  1 O [(K-1)*NZ*NZ, B]  2 b [K*NZ, B]      (inputs, read only)
-//   3 x [K*NZ, B]                                              (output)
-//   4 Ld [K*NTRI, B]  5 Lo [(K-1)*NZ*NZ, B]  6 z [K*NZ, B]     (scratch)
-// Returns cudaGetLastError() after the launch.
-int btridiag_factor_solve_launch(void* const* p, long long B, int K, int lane_tile,
-                                 void* stream) {
-    if (B <= 0) return 0;
-    if (K < 1) return (int)cudaErrorInvalidValue;
-    const unsigned grid = (unsigned)((B + BLOCK_THREADS - 1) / BLOCK_THREADS);
-    decltype(&btridiag_factor_solve_kernel<32>) kernel = nullptr;
-    if (lane_tile == 32) kernel = btridiag_factor_solve_kernel<32>;
-    if (lane_tile == 1) kernel = btridiag_factor_solve_kernel<1>;
-    if (!kernel) return (int)cudaErrorInvalidValue;
-    kernel<<<grid, BLOCK_THREADS, 0, (cudaStream_t)stream>>>(
-        (const float*)p[0], (const float*)p[1], (const float*)p[2], (float*)p[3],
-        (float*)p[4], (float*)p[5], (float*)p[6], B, K);
-    return (int)cudaGetLastError();
-}
-
-// As above without scratch; D and O (p[0], p[1]) are overwritten by the
-// factor (lower triangle of each D block, all of O), so the caller hands in
-// copies it owns.
+// One-thread-per-lane route of K4. p: host array of device pointers to
+// float32 arrays in the lane layout above with tile width lane_tile (32 or 1):
+//   0 D [K*NZ*NZ, B]  1 O [(K-1)*NZ*NZ, B]  2 b [K*NZ, B]  3 x [K*NZ, B]
+// D and O are overwritten by the factor (lower triangle of each D block, all
+// of O), so the caller hands in copies it owns. Returns cudaGetLastError()
+// after the launch.
 int btridiag_factor_solve_inplace_launch(void* const* p, long long B, int K,
                                          int lane_tile, void* stream) {
     if (B <= 0) return 0;
@@ -826,6 +766,300 @@ int btridiag_factor_solve_smem_launch(void* const* p, long long B, int K, long l
     btridiag_factor_solve_smem_kernel<<<grid, 32, smem_bytes, (cudaStream_t)stream>>>(
         (const float*)p[0], (const float*)p[1], (const float*)p[2], (float*)p[3], B, K,
         strideD, strideO, strideb, lane_floats);
+    return (int)cudaGetLastError();
+}
+
+}  // extern "C"
+
+// ===========================================================================
+// K3: one thread per lane, operands batch-first, factor in a scratch
+// ===========================================================================
+
+#define K3_TILE 32  // lanes of a scratch tile: one warp
+// A block of D or O (NZ*NZ floats) and a stage of b or x (NZ floats) move as
+// whole 16-byte vectors where NZ allows it; the wrapper then hands over every
+// lane's arrays 16-byte aligned.
+#define K3_VEC (NZ % 4 == 0)
+
+// The per-lane arrays of the scratch, in carve order: X(name, floats) with K
+// stages. The scratch is tile-major, [ceil(B / K3_TILE)][rows][K3_TILE] with
+// rows the sum of the table, so a warp's store or load of one element is 128
+// contiguous bytes. ops/cuda/btridiag_kernel.py:scratch_bytes_per_lane states
+// the same sum (the CPU tests parse this table and hold the two together).
+#define K3_SCRATCH_LANE_ARRAYS(X) \
+    X(Ld, K * NTRI)            /* diagonal factors, packed lower */ \
+    X(Lo, (K - 1) * NZ * NZ)   /* sub-diagonal factors */ \
+    X(z, K * NZ)               /* L^-1 b */
+
+__host__ __device__ inline int k3_scratch_floats_per_lane(int K) {
+    int total = 0;
+#define K3_COUNT(name, floats) total += (floats);
+    K3_SCRATCH_LANE_ARRAYS(K3_COUNT)
+#undef K3_COUNT
+    return total;
+}
+
+// A lane's arrays in the scratch: element e of an array at name[e * K3_TILE].
+struct LaneScratch {
+#define K3_DECLARE(name, floats) float* name;
+    K3_SCRATCH_LANE_ARRAYS(K3_DECLARE)
+#undef K3_DECLARE
+};
+
+__device__ __forceinline__ LaneScratch k3_carve(float* scratch, long long lane, int K) {
+    float* base = scratch + lane_offset<K3_TILE>(lane, k3_scratch_floats_per_lane(K));
+    LaneScratch s;
+#define K3_TAKE(name, floats) \
+    s.name = base;            \
+    base += (size_t)(floats) * K3_TILE;
+    K3_SCRATCH_LANE_ARRAYS(K3_TAKE)
+#undef K3_TAKE
+    return s;
+}
+
+// One 16-byte load of the caller's operands (read only for the whole launch).
+// The L2 fetches the 128 bytes around it: a lane's next stage lies right
+// behind the one asked for, so one access to device memory brings both.
+__device__ __forceinline__ float4 k3_ldg4(const float4* p) {
+#if defined(__CUDA_ARCH__)
+    float4 v;
+    asm("ld.global.nc.L2::128B.v4.f32 {%0, %1, %2, %3}, [%4];"
+        : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+        : "l"(p));
+    return v;
+#else
+    return __ldg(p);
+#endif
+}
+
+// COUNT consecutive floats of the caller's operands, as 16-byte vectors where
+// K3_VEC allows.
+template <int COUNT>
+__device__ __forceinline__ void k3_load(const float* __restrict__ p, float (&dst)[COUNT]) {
+    if constexpr (K3_VEC && COUNT % 4 == 0) {
+#pragma unroll
+        for (int j = 0; j < COUNT / 4; ++j) {
+            const float4 v = k3_ldg4(reinterpret_cast<const float4*>(p) + j);
+            dst[4 * j] = v.x;
+            dst[4 * j + 1] = v.y;
+            dst[4 * j + 2] = v.z;
+            dst[4 * j + 3] = v.w;
+        }
+    } else {
+#pragma unroll
+        for (int j = 0; j < COUNT; ++j) dst[j] = __ldg(p + j);
+    }
+}
+
+__device__ __forceinline__ void k3_store_x(float* p, const float (&v)[NZ]) {
+    if constexpr (K3_VEC) {
+#pragma unroll
+        for (int j = 0; j < NZ / 4; ++j)
+            reinterpret_cast<float4*>(p)[j] = make_float4(v[4 * j], v[4 * j + 1], v[4 * j + 2],
+                                                          v[4 * j + 3]);
+    } else {
+#pragma unroll
+        for (int j = 0; j < NZ; ++j) p[j] = v[j];
+    }
+}
+
+// X = L^-1 Ob (every column) and z = L^-1 r: NZ + 1 chains of quotients that
+// wait for L only, interleaved.
+template <bool FAST>
+__device__ __forceinline__ bool solve_block_and_vec(const float (&L)[NZ][NZ],
+                                                    const float (&Linv)[NZ],
+                                                    const float (&Ob)[NZ * NZ],
+                                                    const float (&r)[NZ], float (&X)[NZ][NZ],
+                                                    float (&z)[NZ]) {
+    bool bad = false;
+#pragma unroll
+    for (int i = 0; i < NZ; ++i) {
+#pragma unroll
+        for (int c = 0; c < NZ; ++c) {
+            float acc = Ob[i * NZ + c];
+#pragma unroll
+            for (int t = 0; t < i; ++t) acc -= L[i][t] * X[t][c];
+            X[i][c] = quotient<FAST>(acc, L[i][i], Linv[i], bad);
+        }
+        float acc = r[i];
+#pragma unroll
+        for (int t = 0; t < i; ++t) acc -= L[i][t] * z[t];
+        z[i] = quotient<FAST>(acc, L[i][i], Linv[i], bad);
+    }
+    return bad;
+}
+
+// Stage record of the backward sweep: f as solve_upper_rec takes it (the
+// diagonal factor packed lower, then the reciprocals of its pivots, which are
+// recomputed here rather than stored: four divisions off the chain cost less
+// than 16 more bytes per stage each way).
+__device__ __forceinline__ void k3_record(const float (&packed)[NTRI], float (&f)[BT_FREC]) {
+#pragma unroll
+    for (int e = 0; e < NTRI; ++e) f[e] = packed[e];
+#pragma unroll
+    for (int i = 0; i < NZ; ++i) f[NTRI + i] = pivot_reciprocal(f[TRI(i, i)]);
+}
+
+// Inputs of one stage of the factor sweep: D_k (the whole block; its upper
+// triangle comes with the vector loads and is never used), O_{k-1} and b_k.
+struct K3Stage {
+    float D[NZ * NZ];
+    float O[NZ * NZ];
+    float b[NZ];
+};
+
+__device__ __forceinline__ void k3_load_stage(const float* __restrict__ D,
+                                              const float* __restrict__ O,
+                                              const float* __restrict__ b, int k, int K,
+                                              K3Stage& in) {
+    if (k >= K) return;
+    k3_load(D + (size_t)k * NZ * NZ, in.D);
+    k3_load(b + (size_t)k * NZ, in.b);
+    if (k > 0) k3_load(O + (size_t)(k - 1) * NZ * NZ, in.O);
+}
+
+// What a stage of the backward sweep reads back from the scratch: the
+// diagonal factor packed lower, Lo of the interval below it, and z.
+struct K3Back {
+    float L[NTRI];
+    float Lo[NZ][NZ];
+    float v[NZ];
+};
+
+__device__ __forceinline__ void k3_load_back(const LaneScratch& s, int k, K3Back& in) {
+    if (k < 0) return;
+#pragma unroll
+    for (int e = 0; e < NTRI; ++e) in.L[e] = s.Ld[(size_t)(k * NTRI + e) * K3_TILE];
+    load_block<K3_TILE>(s.Lo, k, in.Lo);
+    load_vec<K3_TILE>(s.z, k, in.v);
+}
+
+// D, O, b, x: batch-first; lane l's arrays start at D + l * strideD etc.
+// (strides in floats; strideD, strideO may be 0), each contiguous. scratch:
+// tile-major, k3_scratch_floats_per_lane(K) floats per lane.
+__global__ void __launch_bounds__(BLOCK_THREADS)
+btridiag_factor_solve_scratch_kernel(const float* __restrict__ D, const float* __restrict__ O,
+                                     const float* __restrict__ b, float* __restrict__ x,
+                                     float* __restrict__ scratch, long long B, int K,
+                                     long long strideD, long long strideO, long long strideb) {
+    const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (lane >= B) return;
+    D += lane * strideD;
+    O += lane * strideO;
+    b += lane * strideb;
+    x += lane * (long long)(K * NZ);
+    const LaneScratch s = k3_carve(scratch, lane, K);
+
+    float L[NZ][NZ] = {};  // factor of the previous stage
+    float Linv[NZ] = {};   // reciprocals of its pivots
+    bool pivots_ok = false;  // ... all inside quotient's window
+    float r[NZ] = {};      // b_{k-1} - Lo_{k-2} z_{k-2}: what z_{k-1} is solved from
+    float zv[NZ] = {};     // z_{k-1}
+
+    // ---- forward: factor stage k, and z_{k-1} beside X from the same factor ----
+    K3Stage in;
+    k3_load_stage(D, O, b, 0, K, in);
+    for (int k = 0; k < K; ++k) {
+        float S[NZ][NZ], rk[NZ];
+#pragma unroll
+        for (int i = 0; i < NZ; ++i)
+#pragma unroll
+            for (int j = 0; j <= i; ++j) S[i][j] = in.D[i * NZ + j];
+        copy_vec(rk, in.b);
+        if (k > 0) {
+            float X[NZ][NZ];
+            if (!pivots_ok || solve_block_and_vec<true>(L, Linv, in.O, r, X, zv))
+                solve_block_and_vec<false>(L, Linv, in.O, r, X, zv);
+            store_block_transposed<K3_TILE>(s.Lo, k - 1, X);
+            schur_update(S, X);
+            store_vec<K3_TILE>(s.z, k - 1, zv);
+            sub_Xt_vec(rk, X, zv);
+        }
+        // the inputs of stage k are used up: ask for stage k + 1
+        k3_load_stage(D, O, b, k + 1, K, in);
+        chol_block_inv(S, L, Linv);
+        pivots_ok = reciprocals_ok(Linv);
+        store_packed<K3_TILE>(s.Ld, k, L);
+        copy_vec(r, rk);
+    }
+    // z of the last stage
+    if (!pivots_ok || solve_lower_rec<true>(L, Linv, r, zv))
+        solve_lower_rec<false>(L, Linv, r, zv);
+    store_vec<K3_TILE>(s.z, K - 1, zv);
+
+    // ---- backward: L' x = z (L, Linv, zv hold the last stage's factor and z) ----
+    float xv[NZ];
+    {
+        float f[BT_FREC];
+#pragma unroll
+        for (int i = 0; i < NZ; ++i) {
+            f[NTRI + i] = Linv[i];
+#pragma unroll
+            for (int j = 0; j <= i; ++j) f[TRI(i, j)] = L[i][j];
+        }
+        if (!reciprocals_ok(Linv) || solve_upper_rec<true>(f, zv, xv))
+            solve_upper_rec<false>(f, zv, xv);
+        k3_store_x(x + (size_t)(K - 1) * NZ, xv);
+    }
+    K3Back back;
+    k3_load_back(s, K - 2, back);
+    for (int k = K - 2; k >= 0; --k) {
+        // right-hand side of stage k: z_k - Lo_k' x_{k+1}
+        float f[BT_FREC], rk[NZ];
+        k3_record(back.L, f);
+        copy_vec(rk, back.v);
+        sub_matT_vec(rk, back.Lo, xv);
+        k3_load_back(s, k - 1, back);
+        if (!reciprocals_ok(f + NTRI) || solve_upper_rec<true>(f, rk, xv))
+            solve_upper_rec<false>(f, rk, xv);
+        k3_store_x(x + (size_t)k * NZ, xv);
+    }
+}
+
+extern "C" {
+
+// Floats of scratch a lane takes on K3's kernel; the wrapper holds its own
+// formula against this before the first launch.
+int btridiag_scratch_floats_per_lane(int K) { return k3_scratch_floats_per_lane(K); }
+
+// K3. p: host array of device pointers to float32 arrays:
+//   0 D [B | 1][K*NZ*NZ]  1 O [B | 1][(K-1)*NZ*NZ]  2 b [B][K*NZ]   (batch-first, read only)
+//   3 x [B][K*NZ] contiguous                                        (output)
+//   4 scratch [ceil(B/32)][btridiag_scratch_floats_per_lane(K)][32]  (the kernel's own)
+// strides: floats between consecutive lanes of D, O, b (0: one copy for all).
+// Where NZ % 4 == 0 every lane's array must start 16-byte aligned.
+// info (4 ints, may be null): 0 blocks  1 threads per block  2 registers per
+//   thread  3 resident blocks per SM.
+// Returns cudaErrorInvalidValue for misaligned operands, else the first CUDA
+// error of the attribute calls or cudaGetLastError() after the launch.
+int btridiag_factor_solve_scratch_launch(void* const* p, long long B, int K, long long strideD,
+                                         long long strideO, long long strideb, int* info,
+                                         void* stream) {
+    if (B <= 0) return 0;
+    if (K < 1) return (int)cudaErrorInvalidValue;
+    if (K3_VEC) {
+        for (int i = 0; i < 4; ++i)
+            if ((size_t)p[i] % 16 != 0) return (int)cudaErrorInvalidValue;
+        if (strideD % 4 || strideO % 4 || strideb % 4) return (int)cudaErrorInvalidValue;
+    }
+    const unsigned grid = (unsigned)((B + BLOCK_THREADS - 1) / BLOCK_THREADS);
+    if (info) {
+        const void* kernel = (const void*)btridiag_factor_solve_scratch_kernel;
+        int per_sm = 0;
+        cudaError_t err =
+            cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, BLOCK_THREADS, 0);
+        if (err != cudaSuccess) return (int)err;
+        cudaFuncAttributes attr;
+        err = cudaFuncGetAttributes(&attr, kernel);
+        if (err != cudaSuccess) return (int)err;
+        info[0] = (int)grid;
+        info[1] = BLOCK_THREADS;
+        info[2] = attr.numRegs;
+        info[3] = per_sm;
+    }
+    btridiag_factor_solve_scratch_kernel<<<grid, BLOCK_THREADS, 0, (cudaStream_t)stream>>>(
+        (const float*)p[0], (const float*)p[1], (const float*)p[2], (float*)p[3], (float*)p[4],
+        B, K, strideD, strideO, strideb);
     return (int)cudaGetLastError();
 }
 

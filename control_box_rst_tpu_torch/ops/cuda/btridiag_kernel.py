@@ -16,8 +16,12 @@ meet) it launches the kernel that reads D, O, b batch-first as the caller has
 them, gives nz threads to a lane and keeps the factor on chip: the wrapper
 copies nothing. Longer horizons take the one-thread-per-lane kernel that
 writes its factor over copies of D and O in a tile-major lane layout.
-``inplace=False`` is the three-sweep one-thread-per-lane kernel. The
-caller's tensors are never written on any route.
+``inplace=False`` launches K3's kernel, whatever the shape: it too reads D,
+O, b batch-first as the caller has them and writes x batch-first, gives every
+lane a thread of its own (the whole batch in flight), and keeps the factor
+and z in a scratch this wrapper allocates with ``torch.empty``
+(``scratch_bytes_per_lane``, tile-major by 32 lanes). The caller's tensors
+are never written on any route.
 
 Dispatch rule: a CPU tensor takes the plain version
 (``btridiag_factor_solve_plain``, the Python-loop recurrences of
@@ -37,6 +41,7 @@ import torch
 from control_box_rst_tpu_torch.ops.btridiag import btridiag_cholesky, btridiag_solve
 from control_box_rst_tpu_torch.ops.cuda import build
 from control_box_rst_tpu_torch.ops.cuda.layout import (
+    LANE_TILE,
     from_kernel_layout,
     lane_tile,
     padded_lanes,
@@ -119,6 +124,15 @@ def factor_bytes_per_lane(K: int, nz: int) -> int:
     return 4 * floats
 
 
+def scratch_bytes_per_lane(K: int, nz: int) -> int:
+    """Scratch one lane takes on K3's kernel: the sum of the table
+    ``K3_SCRATCH_LANE_ARRAYS`` of ``csrc/btridiag_kernel.cu`` (the diagonal
+    factors packed lower, the sub-diagonal factors, z). The scratch is
+    tile-major by ``LANE_TILE`` lanes, so it holds this for every lane of a
+    batch rounded up to a whole tile."""
+    return 4 * (K * nz * (nz + 1) // 2 + (K - 1) * nz * nz + K * nz)
+
+
 def lanes_per_warp(nz: int) -> int:
     """Lanes a warp serves on the shared-memory route: nz threads per lane."""
     return 32 // nz
@@ -145,14 +159,13 @@ def declare(lib: ctypes.CDLL, nz: int) -> None:
     that it is the nz specialisation."""
     c_i, c_p, c_ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
     lib.btridiag_kernel_nz.restype, lib.btridiag_kernel_nz.argtypes = c_i, []
-    lib.btridiag_smem_floats_per_lane.restype = c_i
-    lib.btridiag_smem_floats_per_lane.argtypes = [c_i]
-    for fn in (lib.btridiag_factor_solve_launch,
-               lib.btridiag_factor_solve_inplace_launch):
+    for fn in (lib.btridiag_smem_floats_per_lane, lib.btridiag_scratch_floats_per_lane):
+        fn.restype, fn.argtypes = c_i, [c_i]
+    lib.btridiag_factor_solve_inplace_launch.restype = c_i
+    lib.btridiag_factor_solve_inplace_launch.argtypes = [c_p, c_ll, c_i, c_i, c_p]
+    for fn in (lib.btridiag_factor_solve_smem_launch, lib.btridiag_factor_solve_scratch_launch):
         fn.restype = c_i
-        fn.argtypes = [c_p, c_ll, c_i, c_i, c_p]
-    lib.btridiag_factor_solve_smem_launch.restype = c_i
-    lib.btridiag_factor_solve_smem_launch.argtypes = [c_p, c_ll, c_i, c_ll, c_ll, c_ll, c_p, c_p]
+        fn.argtypes = [c_p, c_ll, c_i, c_ll, c_ll, c_ll, c_p, c_p]
     if lib.btridiag_kernel_nz() != nz:
         raise RuntimeError(f"library built for another nz than {nz}")
 
@@ -223,24 +236,57 @@ def _launch_smem(lib, D, O, b, dims, stream):
     return x
 
 
-def _launch_thread(lib, D, O, b, dims, inplace, stream):
-    """Launch a one-thread-per-lane kernel: operands copied into the
-    tile-major lane layout (the in-place kernel writes its factor over those
-    copies), scratch allocated, x converted back."""
+def _vector_aligned(a: torch.Tensor, stride: int, nz: int):
+    """``a`` and its lane stride from ``_lane_strided``, as K3's kernel takes
+    them: where nz % 4 == 0 the kernel moves blocks as 16-byte vectors, so
+    every lane's array must start 16-byte aligned. Fresh allocations are; a
+    view that is not (an offset into a larger buffer) is copied once."""
+    if nz % 4 == 0 and (a.data_ptr() % 16 or stride % 4):
+        a = a.clone(memory_format=torch.contiguous_format)
+        stride = a.stride(0) if stride else 0
+    return a, stride
+
+
+def _launch_scratch(lib, D, O, b, dims, stream):
+    """Launch K3's kernel on the caller's batch-first tensors (no layout
+    conversion; x allocated batch-first, the scratch tile-major)."""
+    B, K, nz = dims
+    want = scratch_bytes_per_lane(K, nz)
+    have = 4 * lib.btridiag_scratch_floats_per_lane(K)
+    if have != want:
+        raise RuntimeError(
+            f"btridiag_factor_solve: the kernel carves {have} bytes of scratch per lane, "
+            f"scratch_bytes_per_lane says {want}")
+    (Dk, sD), (Ok, sO), (bk, sb) = (_vector_aligned(*_lane_strided(a), nz) for a in (D, O, b))
+    x = torch.empty((B, K, nz), dtype=b.dtype, device=b.device)
+    tiles = -(-B // LANE_TILE)
+    scratch = torch.empty((tiles * LANE_TILE * want // 4,), dtype=torch.float32, device=b.device)
+    info = (ctypes.c_int * 4)()
+    name = "btridiag_factor_solve"
+    err = lib.btridiag_factor_solve_scratch_launch(
+        ptr_array([Dk, Ok, bk, x, scratch]), B, K, sD, sO, sb, info, stream)
+    LAUNCHES[name] += 1
+    if err != 0:
+        raise RuntimeError(f"{name}: scratch kernel launch failed: CUDA error {err}")
+    LAUNCH_INFO[name] = dict(
+        route="scratch", threads_per_lane=1, scratch_bytes_per_lane=want,
+        blocks=info[0], threads_per_block=info[1],
+        registers_per_thread=info[2], blocks_per_sm=info[3],
+        resident_lanes_per_sm=info[3] * info[1],
+    )
+    return x
+
+
+def _launch_thread(lib, D, O, b, dims, stream):
+    """Launch the one-thread-per-lane kernel of the in-place solve: operands
+    copied into the tile-major lane layout (the kernel writes its factor over
+    those copies), x converted back."""
     B, K, nz = dims
     Dl, Ol, bl = (to_kernel_layout(a) for a in (D, O, b))
-    new = lambda rows: torch.empty(
-        (rows * padded_lanes(B),), dtype=torch.float32, device=D.device)
-    xl = new(K * nz)
-    if inplace:
-        name = "btridiag_factor_solve_inplace"
-        err = lib.btridiag_factor_solve_inplace_launch(
-            ptr_array([Dl, Ol, bl, xl]), B, K, lane_tile(B), stream)
-    else:
-        name = "btridiag_factor_solve"
-        scratch = [new(K * nz * (nz + 1) // 2), new((K - 1) * nz * nz), new(K * nz)]
-        err = lib.btridiag_factor_solve_launch(
-            ptr_array([Dl, Ol, bl, xl] + scratch), B, K, lane_tile(B), stream)
+    xl = torch.empty((K * nz * padded_lanes(B),), dtype=torch.float32, device=D.device)
+    name = "btridiag_factor_solve_inplace"
+    err = lib.btridiag_factor_solve_inplace_launch(
+        ptr_array([Dl, Ol, bl, xl]), B, K, lane_tile(B), stream)
     LAUNCHES[name] += 1
     if err != 0:
         raise RuntimeError(f"{name}_kernel launch failed: CUDA error {err}")
@@ -259,9 +305,10 @@ def btridiag_factor_solve(D, O, b, inplace: bool = True, route=None):
     two-sweep solve that keeps its factor where the backward sweep finds it:
     in shared memory (``route='smem'``, no copies in the wrapper) where
     ``solve_route`` says it fits, else over the wrapper's copies of D and O
-    (``route='thread'``). ``inplace=False`` is the three-sweep kernel with the
-    factor in scratch (one thread per lane). ``route=None`` follows the shape
-    rule; naming a route is for checks. Float32 only on the card."""
+    (``route='thread'``). ``inplace=False`` is K3's kernel, for every shape:
+    one thread per lane, operands as the caller has them, the factor in a
+    scratch. ``route=None`` follows the shape rule; naming a route is for
+    checks of the in-place solve. Float32 only on the card."""
     dims = _check_args(D, O, b)
     B, K, nz = dims
     if route is not None and route not in ROUTES:
@@ -272,16 +319,21 @@ def btridiag_factor_solve(D, O, b, inplace: bool = True, route=None):
         raise RuntimeError(f"btridiag_factor_solve: unsupported device {D.device}")
     if D.dtype != torch.float32:
         raise TypeError(f"the CUDA kernels take float32, got {D.dtype}")
-    rule = solve_route(K, nz) if inplace else "thread"
+    if not inplace and route is not None:
+        raise ValueError(f"route={route!r} names a kernel of the in-place solve; "
+                         "inplace=False has one kernel")
+    rule = solve_route(K, nz)
     if route == "smem" and rule != "smem":
         raise ValueError(
-            "route='smem' needs inplace=True and a factor that fits shared memory "
+            "route='smem' needs a factor that fits shared memory "
             f"({lanes_per_warp(nz)} lanes of {factor_bytes_per_lane(K, nz)} bytes "
             f"in {MAX_DYNAMIC_SMEM_BYTES})")
     route = route or rule
     lib = _load(nz)
     with torch.cuda.device(D.device):
         stream = torch.cuda.current_stream().cuda_stream
+        if not inplace:
+            return _launch_scratch(lib, D, O, b, dims, stream)
         if route == "smem":
             return _launch_smem(lib, D, O, b, dims, stream)
-        return _launch_thread(lib, D, O, b, dims, inplace, stream)
+        return _launch_thread(lib, D, O, b, dims, stream)

@@ -1,16 +1,16 @@
 """Lane layout of the one-thread-per-lane CUDA kernels.
 
 The kernels of ``csrc/`` that run one thread per lane (one problem of the
-batch) with the lane's state in device memory — the three-sweep
-block-tridiagonal solve, and the box-QP and in-place block-tridiagonal
-kernels for shapes whose state does not fit shared memory — keep each
-per-lane array tile-major, ``[ceil(B/T), rows, T]``: with T = ``LANE_TILE`` a
+batch) with the lane's state in device memory, for shapes whose state does
+not fit shared memory — the box-QP kernels and the in-place
+block-tridiagonal kernel — keep each per-lane array tile-major, ``[ceil(B/T), rows, T]``: with T = ``LANE_TILE`` a
 warp is one tile, its 32 threads read 32 neighbouring floats at every access,
 and its share of the array is one contiguous block. Batches smaller than a
 warp take T = 1 (each lane's array contiguous). Those kernels compile both
 instances; their wrappers convert in and out with these functions, which are
-plain PyTorch and run on any device. The shared-memory kernels read and write
-batch-first tensors and do not come here (``ptr_array`` apart).
+plain PyTorch and run on any device. The shared-memory kernels and K3's
+kernel read and write batch-first tensors and do not come here (``ptr_array``
+apart; K3 keeps its scratch tile-major by ``LANE_TILE`` lanes itself).
 """
 from __future__ import annotations
 

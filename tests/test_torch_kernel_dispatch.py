@@ -19,6 +19,7 @@ import torch
 
 from control_box_rst_tpu_torch.ops.cuda import admm_kernel as ak
 from control_box_rst_tpu_torch.ops.cuda import btridiag_kernel as bk
+from torch_kernel_util import misaligned
 
 CSRC = pathlib.Path(ak.SOURCE).parent
 
@@ -97,6 +98,30 @@ def test_factor_bytes_per_lane_equals_the_cuda_carve_up(shape):
     assert bk.factor_bytes_per_lane(K, nz) == _btridiag_bytes_from_source(K, nz)
 
 
+def _k3_scratch_bytes_from_source(K, nz):
+    text = (CSRC / "btridiag_kernel.cu").read_text()
+    env = dict(NZ=nz, K=K)
+    env["NTRI"] = _c_int(_define(text, "NTRI"), env)
+    return 4 * sum(_c_int(expr, env) for _, expr, _ in _table(text, "K3_SCRATCH_LANE_ARRAYS"))
+
+
+@pytest.mark.parametrize("shape", [(51, 4), (7, 3), (1001, 4), (1, 4), (13, 6)],
+                         ids=lambda s: "K{}_nz{}".format(*s))
+def test_scratch_bytes_per_lane_equals_the_cuda_carve_up(shape):
+    """K3's scratch: the wrapper's byte count against the table the kernel
+    carves its lane's arrays by (tile-major, no padding between arrays)."""
+    K, nz = shape
+    assert bk.scratch_bytes_per_lane(K, nz) == _k3_scratch_bytes_from_source(K, nz)
+
+
+def test_scratch_at_the_flagship_shapes():
+    """K=51, nz=4: diagonal factors 2,040 B, sub-diagonal 3,200 B, z 816 B a
+    lane; tiles of one warp, as the layout module's."""
+    assert bk.scratch_bytes_per_lane(51, 4) == 2040 + 3200 + 816 == 6056
+    text = (CSRC / "btridiag_kernel.cu").read_text()
+    assert int(_define(text, "K3_TILE")) == bk.LANE_TILE == 32
+
+
 def test_tables_name_what_the_source_notes_say():
     names = [n for n, _, _ in _table((CSRC / "admm_kernel.cu").read_text(), "SMEM_LANE_ARRAYS")]
     assert names == ["x", "zb", "yb", "xt", "gs", "lo", "hi", "rb", "cs", "yd", "Lf", "Lo",
@@ -104,6 +129,9 @@ def test_tables_name_what_the_source_notes_say():
     names = [n for n, _, _ in _table((CSRC / "btridiag_kernel.cu").read_text(),
                                      "BT_SMEM_LANE_ARRAYS")]
     assert names == ["Lf", "Lo", "z"]
+    names = [n for n, _, _ in _table((CSRC / "btridiag_kernel.cu").read_text(),
+                                     "K3_SCRATCH_LANE_ARRAYS")]
+    assert names == ["Ld", "Lo", "z"]
 
 
 @pytest.mark.parametrize("case", [
@@ -265,3 +293,66 @@ def test_operands_reach_the_shared_memory_kernels_without_needless_copies(case):
     ops, shared = ak._batch_first_operands(args)
     assert shared and [tuple(o.shape) for o in ops[:3]] == [tuple(x.shape[1:]) for x in args[:3]]
     assert all(o.is_contiguous() for o in ops)
+
+
+class _RecordingLib:
+    """Stands in for the loaded library: records what the wrapper hands to
+    K3's launcher and launches nothing."""
+
+    def __init__(self):
+        self.calls = []
+
+    def btridiag_scratch_floats_per_lane(self, K):
+        return bk.scratch_bytes_per_lane(K, 4) // 4
+
+    def btridiag_factor_solve_scratch_launch(self, p, B, K, sD, sO, sb, info, stream):
+        self.calls.append(dict(ptrs=[p[i] for i in range(5)], strides=(sD, sO, sb)))
+        return 0
+
+
+@pytest.mark.parametrize("case", ["contiguous", "broadcast", "strided-lanes", "single-lane",
+                                  "transposed-b", "misaligned"])
+def test_k3_is_handed_the_callers_tensors_without_a_copy(case):
+    """What K3's launch hands to its kernel: the caller's own tensors (a
+    broadcast D or O as its one copy, lanes a stride apart with their
+    stride), no layout conversion; only a view whose lanes are not contiguous
+    or not 16-byte aligned is copied, once, and x and the scratch are fresh."""
+    B, K, nz = 6, 5, 4
+    D, O, b = torch.randn(B, K, nz, nz), torch.randn(B, K - 1, nz, nz), torch.randn(B, K, nz)
+    if case == "broadcast":
+        D, O = D[0].expand(D.shape), O[0].expand(O.shape)
+    elif case == "strided-lanes":
+        D, O, b = D[::2], O[::2], b[::2]
+    elif case == "single-lane":
+        D, O, b = D[:1], O[:1], b[:1]
+    elif case == "transposed-b":
+        b = b.transpose(0, 1).contiguous().transpose(0, 1)
+    elif case == "misaligned":
+        D, O, b = (misaligned(a) for a in (D, O, b))
+    lanes = D.shape[0]
+    lib = _RecordingLib()
+    x = bk._launch_scratch(lib, D, O, b, (lanes, K, nz), 0)
+    (call,) = lib.calls
+    assert x.shape == (lanes, K, nz) and x.is_contiguous()
+    assert call["ptrs"][3] == x.data_ptr() and call["ptrs"][4] not in call["ptrs"][:4]
+    assert all(p % 16 == 0 for p in call["ptrs"])
+    sD, sO, sb = call["strides"]
+    if case in ("contiguous", "broadcast", "strided-lanes", "single-lane"):
+        assert call["ptrs"][:3] == [a.data_ptr() for a in (D, O, b)]
+    if case == "contiguous":
+        assert (sD, sO, sb) == (K * nz * nz, (K - 1) * nz * nz, K * nz)
+    elif case == "broadcast":
+        assert (sD, sO, sb) == (0, 0, K * nz)
+    elif case == "strided-lanes":
+        assert (sD, sO, sb) == (2 * K * nz * nz, 2 * (K - 1) * nz * nz, 2 * K * nz)
+    elif case == "single-lane":
+        assert (sD, sO, sb) == (0, 0, 0)
+    elif case == "transposed-b":
+        assert call["ptrs"][:2] == [D.data_ptr(), O.data_ptr()] and call["ptrs"][2] != b.data_ptr()
+        assert sb == K * nz
+    else:
+        assert not set(call["ptrs"][:3]) & {a.data_ptr() for a in (D, O, b)}
+        assert (sD, sO, sb) == (K * nz * nz, (K - 1) * nz * nz, K * nz)
+    info = bk.LAUNCH_INFO["btridiag_factor_solve"]
+    assert info["route"] == "scratch" and info["threads_per_lane"] == 1
+    assert info["scratch_bytes_per_lane"] == bk.scratch_bytes_per_lane(K, nz)

@@ -11,7 +11,8 @@ the same numpy inputs from a seed, float32:
   * the shared-memory kernels (a team of threads per lane, persistent blocks,
     lanes handed out by an atomic counter) against the one-thread-per-lane
     kernels: same statements in the same order and no FMA contraction on the
-    host, so the same bits;
+    host, so the same bits; so does K3's kernel (one thread per lane, the
+    factor in a scratch);
   * both against the plain PyTorch versions (x atol 1e-4 over a few ρ-adapted
     rounds, the per-lane ``it`` equal; 5e-6 for the block-tridiagonal solve,
     the bound of tests/test_torch_btridiag_kernel.py).
@@ -27,6 +28,7 @@ import torch
 
 from control_box_rst_tpu_torch.ops.cuda import admm_kernel as ak
 from control_box_rst_tpu_torch.ops.cuda import btridiag_kernel as bk
+from torch_kernel_util import misaligned
 
 torch.set_num_threads(1)
 NZ, NC = 4, 2
@@ -155,23 +157,29 @@ def _spd(B, K, nz, seed=3):
 @pytest.mark.parametrize("shape", [(1, 1), (1, 5), (11, 7), (19, 2), (8, 13)],
                          ids=lambda s: "B{}_K{}".format(*s))
 def test_btridiag_kernels_on_the_host(libs, shape, nz):
-    """The shared-memory kernel (nz threads per lane) against both
-    one-thread-per-lane kernels and the plain version; ragged last warps, a
-    single stage, 32 % nz != 0."""
+    """The shared-memory kernel (nz threads per lane) against the
+    one-thread-per-lane kernel of the in-place solve, K3's kernel and the
+    plain version; ragged last warps, a single stage, 32 % nz != 0."""
     _, bts = libs
     B, K = shape
     D, O, b = _spd(B, K, nz)
     dims = (B, K, nz)
     x_smem = bk._launch_smem(bts[nz], D, O, b, dims, 0)
-    x_two = bk._launch_thread(bts[nz], D, O, b, dims, True, 0)
-    x_three = bk._launch_thread(bts[nz], D, O, b, dims, False, 0)
-    assert torch.equal(x_smem, x_two) and torch.equal(x_two, x_three)
+    x_two = bk._launch_thread(bts[nz], D, O, b, dims, 0)
+    x_k3 = bk._launch_scratch(bts[nz], D, O, b, dims, 0)
+    assert torch.equal(x_smem, x_two) and torch.equal(x_two, x_k3)
+    info = bk.LAUNCH_INFO["btridiag_factor_solve"]
+    assert info["route"] == "scratch" and info["threads_per_lane"] == 1
     np.testing.assert_allclose(
         x_smem.numpy(), bk.btridiag_factor_solve_plain(D, O, b).numpy(), rtol=0, atol=5e-6)
 
 
-@pytest.mark.parametrize("case", ["broadcast", "strided-lanes", "transposed-b", "not-spd"])
-def test_btridiag_shared_memory_kernel_takes_operands_as_they_are(libs, case):
+@pytest.mark.parametrize("case", ["broadcast", "strided-lanes", "transposed-b", "not-spd",
+                                  "misaligned"])
+@pytest.mark.parametrize("kernel", ["smem", "scratch"])
+def test_btridiag_shared_memory_kernel_takes_operands_as_they_are(libs, kernel, case):
+    """Both kernels that read the caller's batch-first tensors as they are:
+    K4's shared-memory kernel and K3's scratch kernel."""
     _, bts = libs
     nz = 4
     D, O, b = _spd(9, 6, nz, seed=5)
@@ -181,11 +189,14 @@ def test_btridiag_shared_memory_kernel_takes_operands_as_they_are(libs, case):
         D, O, b = D[::2], O[::2], b[::2]
     elif case == "transposed-b":
         b = b.transpose(0, 1).contiguous().transpose(0, 1)
+    elif case == "misaligned":
+        D, O, b = (misaligned(a) for a in (D, O, b))
     else:
         D = D.clone()
         D[2, 3] = -torch.eye(nz)
     before = [a.clone() for a in (D, O, b)]
-    x = bk._launch_smem(bts[nz], D, O, b, (D.shape[0], 6, nz), 0)
+    launch = bk._launch_smem if kernel == "smem" else bk._launch_scratch
+    x = launch(bts[nz], D, O, b, (D.shape[0], 6, nz), 0)
     assert all(torch.equal(a, c) for a, c in zip((D, O, b), before))  # inputs are read only
     want = bk.btridiag_factor_solve_plain(D, O, b)
     if case == "not-spd":

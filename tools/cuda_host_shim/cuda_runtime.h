@@ -27,6 +27,7 @@
 struct shim_dim3 { unsigned x = 0, y = 0, z = 0; };
 extern thread_local shim_dim3 threadIdx, blockIdx, blockDim, gridDim;
 struct alignas(16) float4 { float x, y, z, w; };
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 struct alignas(8) float2 { float x, y; };
 
 typedef void* cudaStream_t;
