@@ -3,10 +3,13 @@
 
     python3 chip_smoke.py [--profile]
 
-Drives the port's two main paths on the card — the config-1 batched MPC solve
-by SQP (H=50 double integrator, B=32768 lanes, float32) through
-``make_batched_solver``, and the same batch by Levenberg-Marquardt through
-``make_batched_lm_solver`` — after building every CUDA kernel of those paths
+Drives the port's paths on the card — the config-1 batched MPC solve by SQP
+(H=50 double integrator, B=32768 lanes, float32) through
+``make_batched_solver``, the same batch by Levenberg-Marquardt through
+``make_batched_lm_solver``, and the nonlinear SQP solves of config 2 (Van der
+Pol, multiple shooting, H=20) and config 3 (time-optimal double integrator,
+H=20, a dt tied across the intervals) at B=4096 through
+``make_batched_solver`` — after building every CUDA kernel of those paths
 from the sources in this checkout and holding each kernel against its plain
 PyTorch version on the same inputs. There is no CPU path: without a CUDA
 device the script exits non-zero and prints no result. Any phase that fails
@@ -14,8 +17,9 @@ raises, and the run fails with it.
 
 Phases
   1 device   require CUDA; card name and power limit (nvidia-smi)
-  2 build    compile csrc/*.cu with nvcc, one process per source, started
-             together (seconds)
+  2 build    compile csrc/*.cu with nvcc, one process per library (the
+             box-QP source for (nz, nc) = (4, 2) and (4, 3), the
+             block-tridiagonal source), started together (seconds)
   3 kernels  box-QP ADMM kernels vs plain version at flagship shapes (Kst=51,
              nz=4, nc=2): the reciprocal-based quotient of the kernels against
              the division, bit for bit, on random operands; 256 lanes of
@@ -29,6 +33,13 @@ Phases
              outer SQP iteration, the shared-memory kernels against the
              one-thread-per-lane kernels on the same inputs, times and
              roofline bounds.
+             The box-QP solve kernel at the nonlinear paths' shapes: the QPs
+             of config 2's and config 3's first outer SQP iteration at
+             B=4096 (Kst=21, nc=2 and 3, Hd/J/K per lane, two rounds, no KKT
+             exit) against the float64 plain version (as close as the
+             float32 plain version), per-lane rounds within one of the plain
+             version, B=1 and B=8 through both routes give the first lanes'
+             bits; wrapper and kernel-alone times, bounds, launch shape.
              Block-tridiagonal factor-and-solve kernels (K3: one thread per
              lane, factor in a scratch; K4: factor kept on chip) vs plain
              version at K=51, nz=4, B=32768: random SPD systems (atol 5e-6),
@@ -52,17 +63,27 @@ Phases
              (float32 LM is path-dependent: a bit of difference in a step can
              flip an accept test, so the two passes are not held to each
              other; their difference is reported)
-  6 result   one JSON line with every kernel's record, then the contract line
+  6 nonlinear  configs 2 and 3 at B=4096; gates: converged fraction >= 0.99,
+             the box-QP kernel launched once per lock-step SQP iteration
+             (launches == the largest iteration count > 0), config 2 max
+             |U - U_oracle| <= 1e-3 on the 48 lanes of the f64 oracle golden
+             file, config 3 max |T - 2 sqrt(d)| <= 1e-3 on every lane;
+             solves/s (best of 3 batches), SQP iterations, peak device
+             memory, p50 / p99 of 20 single solves of each
+  7 result   one JSON line with every kernel's record, then the contract line
 
 Output: progress lines (with ``--profile`` a ``{"profile": ...}`` line with the
-device time by kernel and the hand-written kernels launch by launch, and a
+device time by kernel and the hand-written kernels launch by launch, a
 ``{"kernels_alone_ms": ...}`` line with K1 and K2 on both routes and K4's
-one-thread-per-lane route by themselves),
-then a ``{"main": ...}`` line, a ``{"lm": ...}`` line, the nvidia-smi line, a
-``{"kernels": [...]}`` line (per kernel the contract's keys and, where a
-kernel was redesigned, ``earlier_ms`` / ``vs_earlier``: the kernel it replaced
-on the same inputs, and ``launch``: route, shared memory per lane, resident
-lanes per SM, registers per thread), and as the last line
+one-thread-per-lane route by themselves, and a ``{"profile_nonlinear": ...}``
+line: one traced batch of configs 2 and 3, with the eager kernels per SQP
+iteration), then a ``{"main": ...}`` line, a ``{"lm": ...}`` line, a
+``{"nonlinear": ...}`` line, the nvidia-smi line, a ``{"kernels": [...]}``
+line (per kernel the contract's keys and, where a kernel was redesigned,
+``earlier_ms`` / ``vs_earlier``: the kernel it replaced on the same inputs,
+and ``launch``: route, shared memory per lane, resident lanes per SM,
+registers per thread; the box-QP solve kernel adds ``launches_by_path`` and
+``shapes``, its record at the nonlinear paths' shapes), and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -82,6 +103,7 @@ sys.path.insert(0, str(ROOT))
 
 GOLDEN = ROOT / "tests" / "golden" / "torch_flagship_oracle_N50.npz"
 LM_GOLDEN = ROOT / "tests" / "golden" / "torch_lm_oracle_N50.npz"
+VDP_GOLDEN = ROOT / "tests" / "golden" / "torch_vdp_ms_oracle_N20.npz"
 BATCH = 32768      # lanes of the main paths
 SMALL_BATCH = 256  # lanes of the tolerance checks
 KERNEL_REPS = 3    # launches per kernel timing
@@ -90,6 +112,9 @@ LM_TRIALS = 2      # LM path: best of LM_TRIALS single batches
 LM_LATE_ITERATION = 15  # the "late" LM iteration whose linear system is checked
 LONG_KST = 1001   # a horizon whose lane state does not fit shared memory
 LONG_BATCH = 128  # lanes of the long-horizon checks
+NL_BATCH = 4096    # lanes of the nonlinear paths (configs 2 and 3)
+NL_TRIALS = 3      # nonlinear paths: best of NL_TRIALS single batches
+NL_SINGLE = 20     # single solves of each nonlinear config for its p50 / p99
 CONV_GATE = 0.99
 ERR_GATE = 1e-3
 # published peaks of one H100 SXM (NVIDIA data sheet): the roofline yardstick
@@ -829,6 +854,211 @@ def phase_btridiag_kernels(ocp, lm_cfg, x0s_all, reps: int):
     return records
 
 
+def nonlinear_problems():
+    """Configs 2 and 3 as the nonlinear phases take them: name -> (ocp, cfg,
+    initial dt of the straight-line guess, initial states [NL_BATCH, 2]
+    float32). Config 2 x0 ~ U(-1.5, 1.5)^2 from seed 1, config 3 x0 = [d, 0]
+    with d ~ U(0.5, 2) from seed 2 (the reference's bench rows)."""
+    from control_box_rst_tpu_torch.entry import time_optimal, vdp_ms
+
+    x0_vdp = np.random.default_rng(1).uniform(-1.5, 1.5, (NL_BATCH, 2)).astype(np.float32)
+    d = np.random.default_rng(2).uniform(0.5, 2.0, (NL_BATCH,)).astype(np.float32)
+    x0_to = np.stack([d, np.zeros_like(d)], axis=1)
+    return {
+        "vdp_ms": (*vdp_ms(N=20), 0.1, x0_vdp),
+        "time_optimal": (*time_optimal(N=20), 0.12, x0_to),
+    }
+
+
+def first_iteration_qps(ocp, cfg, dt_init, x0s):
+    """The box QPs that the outer SQP loop hands the kernel's wrapper in its
+    first iteration, for every lane of ``x0s``, and the wrapper's keyword
+    arguments: caught at the wrapper during a solve of one SQP iteration
+    through ``make_batched_solver``."""
+    from control_box_rst_tpu_torch.ops.cuda import admm_kernel as ak
+    from control_box_rst_tpu_torch.parallel import make_batched_solver
+
+    caught, real = [], ak.boxqp_solve
+
+    def catch(*args, **kw):
+        caught.append((args, kw))
+        return real(*args, **kw)
+
+    ak.boxqp_solve = catch
+    try:
+        make_batched_solver(ocp, cfg.replace(max_iter=1), dt_init=dt_init,
+                            device=x0s.device)(x0s)
+    finally:
+        ak.boxqp_solve = real
+    if len(caught) != 1:
+        raise AssertionError(f"one SQP iteration made {len(caught)} box-QP calls")
+    return list(caught[0][0]), caught[0][1]
+
+
+def phase_nonlinear_kernels(problems, reps: int):
+    """K1 against its plain version at the shapes of the nonlinear paths: the
+    QPs of config 2's and config 3's first outer SQP iteration at B=4096
+    (Kst=21, nc=2 and 3, Hd/J/K per lane), production exits (two rounds, no
+    KKT exit). Gates: as close to the float64 plain version as the float32
+    plain version (slack 2x + 1e-4), per-lane rounds within one of the plain
+    version, B=1 and B=8 give the first lanes' bits through both routes.
+    Returns name -> the record of these shapes."""
+    from control_box_rst_tpu_torch.ops.cuda import admm_kernel as ak
+
+    out = {}
+    for name, (ocp, cfg, dt0, x0s_np) in problems.items():
+        args, kw = first_iteration_qps(ocp, cfg, dt0, torch.as_tensor(x0s_np, device="cuda"))
+        B, Kst, nz = args[0].shape[:3]
+        nc, iters = args[1].shape[2], kw["iters"]
+        if ak._lane_invariant(*args[:3]):
+            raise AssertionError(f"{name}: Hd/J/K reached the kernel as one shared copy")
+        out_k = ak.boxqp_solve(*args, **kw)
+        torch.cuda.synchronize()
+        launch = dict(ak.LAUNCH_INFO["boxqp_solve"])
+        if launch.get("route") != "smem" or launch.get("shared_hjk"):
+            raise AssertionError(f"{name}: expected the shared-memory route, per-lane Hd/J/K, took {launch}")
+        t0 = time.perf_counter()
+        out_p = ak.boxqp_solve_plain(*args, **kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        out_d = ak.boxqp_solve_plain(*as_f64(args), **kw)
+        errs = {}
+        for i, nm in ((0, "x"), (2, "y_d"), (3, "y_b")):
+            errs[nm] = assert_as_close_as_plain(
+                f"boxqp_solve {name} B={B} {nm}", out_k[i], out_p[i], out_d[i], floor=1e-4)
+        d_rounds = (out_k[6] - out_p[6]).abs() / iters
+        if not bool((d_rounds <= 1).all()):
+            raise AssertionError(
+                f"boxqp_solve {name}: per-lane rounds differ from the plain version by up "
+                f"to {float(d_rounds.max())}")
+        # the one-thread-per-lane kernels on the same QPs, and B = 1, 8 through
+        # both routes: the first lanes' bits
+        out_t = ak.boxqp_solve(*args, **kw, route="thread")
+        torch.cuda.synchronize()
+        e_t, _ = assert_as_close_as_plain(
+            f"boxqp_solve {name} thread route x", out_t[0], out_p[0], out_d[0], floor=1e-4)
+        for route, full in (("smem", out_k), ("thread", out_t)):
+            for n in (1, 8):
+                out_n = ak.boxqp_solve(*[a[:n] for a in args], **kw, route=route)
+                torch.cuda.synchronize()
+                if not all_equal(out_n, [o[:n] for o in full]):
+                    raise AssertionError(
+                        f"boxqp_solve {name} route {route}: B={n} disagrees with the first lanes")
+        call = lambda: ak.boxqp_solve(*args, **kw)
+        ms = min(time_ms(call, reps), time_ms(call, reps))
+        alone = kernels_alone_ms({name: (call, "boxqp_solve_smem_kernel")}, reps)[name]
+        rounds = float((out_k[6] / iters).sum())  # rounds this run's data needed
+        t_ops = rounds * ak.solve_flops_per_round(Kst, nz, nc, iters, False) / PEAK_FP32_PER_S * 1e3
+        t_bytes = ak.io_bytes(Kst, nz, nc, B, True, shared_hjk=False) / PEAK_BYTES_PER_S * 1e3
+        out[name] = dict(
+            Kst=Kst, nz=nz, nc=nc, batch=B, per_lane_hjk=True, n_rounds=kw["n_rounds"],
+            iters=iters, ms=ms, alone_ms=alone, plain_ms=plain_ms,
+            bound_ms=max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            bound_bytes_ms=t_bytes, bound_ops_ms=t_ops,
+            max_abs_err=float((out_k[0] - out_p[0]).abs().max()),
+            err_vs_f64={k: v[0] for k, v in errs.items()},
+            plain_err_vs_f64={k: v[1] for k, v in errs.items()},
+            thread_route_err_vs_f64=e_t,
+            same_it_frac=float((d_rounds == 0).float().mean()),
+            mean_rounds=rounds / B, launch=launch,
+        )
+        del args, out_k, out_p, out_d, out_t
+    log("kernels[nonlinear shapes]: " + json.dumps(out))
+    return out
+
+
+def phase_nonlinear(problems, trials: int, n_single: int):
+    """The batched SQP solves of configs 2 and 3 at B=4096 through
+    ``make_batched_solver``, every QP of every SQP iteration through K1.
+    Gates: converged fraction >= 0.99; K1 launched once per lock-step SQP
+    iteration (launches == the largest iteration count, > 0); config 2 max
+    |U - U_oracle| <= 1e-3 on the 48 lanes of the float64 oracle golden file;
+    config 3 max |T - 2 sqrt(d)| <= 1e-3 over every lane (T = the objective,
+    the sum of the dt_k). Returns (launches, records, solvers) by config."""
+    from control_box_rst_tpu_torch.ops.cuda import admm_kernel as ak
+    from control_box_rst_tpu_torch.parallel import make_batched_solver
+
+    launches, recs, solvers = {}, {}, {}
+    for name, (ocp, cfg, dt0, x0s_np) in problems.items():
+        solver = make_batched_solver(ocp, cfg, dt_init=dt0)  # device=None: the card
+        solvers[name] = solver
+        B = x0s_np.shape[0]
+        x0s = torch.as_tensor(x0s_np, device="cuda")
+        solver(x0s[:256])  # warm-up
+        torch.cuda.synchronize()
+
+        torch.cuda.reset_peak_memory_stats()
+        ak.reset_launch_counts()
+        U, obj, status, iters = solver(x0s)
+        torch.cuda.synchronize()
+        n_launch = ak.LAUNCHES["boxqp_solve"]
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        route = dict(ak.LAUNCH_INFO["boxqp_solve"])
+
+        if U.shape != (B, ocp.N, ocp.nu) or not bool(torch.isfinite(U).all()):
+            raise AssertionError(f"{name}: U has shape {tuple(U.shape)} or non-finite values")
+        if not bool(torch.isfinite(obj).all()):
+            raise AssertionError(f"{name}: non-finite objective")
+        lock_step = int(iters.max())
+        log(f"{name}: boxqp_solve launched {n_launch} time(s) in {lock_step} lock-step "
+            f"SQP iterations, last launch {route}")
+        if n_launch <= 0 or n_launch != lock_step:
+            raise AssertionError(
+                f"{name}: {n_launch} boxqp_solve launches for {lock_step} lock-step SQP iterations")
+        if route.get("route") != "smem" or route.get("shared_hjk"):
+            raise AssertionError(f"{name}: boxqp_solve took {route}, not per-lane shared memory")
+        conv = float((status == 1).float().mean())
+        quality = {}
+        if name == "vdp_ms":
+            gold = np.load(VDP_GOLDEN)
+            n_g = gold["U"].shape[0]
+            if not np.array_equal(gold["x0s"], x0s_np[:n_g]):
+                raise AssertionError("config-2 golden file was made for other initial states")
+            err = float(np.max(np.abs(U[:n_g].double().cpu().numpy() - gold["U"])))
+            quality = dict(max_u_err_vs_f64_oracle=err, oracle_lanes=n_g)
+        else:
+            t_star = 2.0 * np.sqrt(x0s_np[:, 0].astype(np.float64))
+            err = float(np.max(np.abs(obj.double().cpu().numpy() - t_star)))
+            quality = dict(max_tstar_err_vs_analytic=err, lanes=B)
+        if conv < CONV_GATE:
+            raise AssertionError(f"{name}: converged_frac {conv:.4f} < {CONV_GATE}")
+        if not (err <= ERR_GATE):
+            raise AssertionError(f"{name}: quality gate {quality} > {ERR_GATE}")
+
+        best = float("inf")
+        for _ in range(trials):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solver(x0s)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        rec = dict(
+            batch=B, solves_per_s=B / best, batch_solve_ms=best * 1e3,
+            converged_frac=conv, mean_sqp_iters=float(iters.float().mean()),
+            max_sqp_iters=lock_step, boxqp_solve_launches=n_launch,
+            kernel_route=route, peak_device_memory_gib=peak_gb, **quality,
+        )
+        if n_single:
+            x0_1 = x0s[:1]
+            solver(x0_1)
+            torch.cuda.synchronize()
+            lats = []
+            for _ in range(n_single):
+                t0 = time.perf_counter()
+                solver(x0_1)
+                torch.cuda.synchronize()
+                lats.append(time.perf_counter() - t0)
+            rec.update(
+                p50_single_solve_ms=float(np.percentile(np.asarray(lats), 50) * 1e3),
+                p99_single_solve_ms=float(np.percentile(np.asarray(lats), 99) * 1e3),
+                single_solves=n_single,
+            )
+        recs[name] = rec
+        launches[name] = n_launch
+    return launches, recs, solvers
+
+
 def phase_main(ocp, cfg, x0s_np, trials: int, reps: int):
     from control_box_rst_tpu_torch.ops.cuda import admm_kernel as ak
     from control_box_rst_tpu_torch.parallel import make_batched_solver
@@ -1142,9 +1372,11 @@ def main() -> int:
     # ---- 2 build ----
     ocp, cfg = flagship(N=50)
     _, lm_cfg = flagship_lm(N=50)
+    problems = nonlinear_problems()
     t0 = time.perf_counter()
+    shapes = sorted({(ocp.nz, ocp.nc)} | {(p[0].nz, p[0].nc) for p in problems.values()})
     libs = build.build_all(
-        [ak.build_spec(ocp.nz, ocp.nc), bk.build_spec(ocp.nz)], verbose=True)
+        [ak.build_spec(nz, nc) for nz, nc in shapes] + [bk.build_spec(ocp.nz)], verbose=True)
     log(f"build: {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.1f} s")
 
     rng = np.random.default_rng(0)
@@ -1154,19 +1386,26 @@ def main() -> int:
     ocp_dev = ocp.to(device="cuda", dtype=torch.float32)
     x0s_dev = torch.as_tensor(x0s_np, device="cuda")
     records = phase_kernels(ocp_dev, cfg, x0s_dev, SMALL_BATCH, KERNEL_REPS)
+    records[0]["shapes"] = phase_nonlinear_kernels(problems, KERNEL_REPS)
     records += phase_btridiag_kernels(ocp_dev, lm_cfg, x0s_dev, KERNEL_REPS)
     if opts.skip_main:
         log(json.dumps({"kernels": records}))
         return 3
 
-    # ---- 4 main path (SQP), 5 LM path ----
+    # ---- 4 main path (SQP), 5 LM path, 6 nonlinear paths ----
     launches, main_rec = phase_main(ocp, cfg, x0s_np, TRIALS, REPS)
     lm_launches, lm_rec = phase_lm(ocp, lm_cfg, x0s_np, LM_TRIALS)
-    launches = {**launches, **lm_launches}  # each count from its own path's run
+    nl_launches, nl_rec, nl_solvers = phase_nonlinear(problems, NL_TRIALS, NL_SINGLE)
+    # each count from its own path's run; K1 carries one count per path
+    k1_paths = {"sqp_config1": launches["boxqp_solve"], **nl_launches}
+    launches = {**launches, **lm_launches, "boxqp_solve": sum(k1_paths.values())}
+    records[0]["launches_by_path"] = k1_paths
     for r in records:
         r["launches"] = launches[r["name"]]
         if r["on_main_path"] and r["launches"] <= 0:
             raise AssertionError(f"kernel {r['name']} was not launched by its main path")
+    if min(k1_paths.values()) <= 0:
+        raise AssertionError(f"boxqp_solve was not launched by every path: {k1_paths}")
 
     if opts.profile:
         from control_box_rst_tpu_torch.parallel import (
@@ -1182,10 +1421,22 @@ def main() -> int:
              "lm_batch_k3": (lm3, BATCH)},
             x0s_np)}))
         log(json.dumps({"kernels_alone_ms": profile_kernels_alone(ocp_dev, cfg, x0s_dev)}))
+        nl_prof = {}
+        for name, solver in nl_solvers.items():
+            prof = phase_profile({name: (solver, NL_BATCH)}, problems[name][3])[name]
+            k1 = [v for k, v in prof["own_kernels"].items() if "boxqp_solve" in k]
+            if len(k1) != 1:
+                raise AssertionError(f"{name}: the profiler saw {list(prof['own_kernels'])}")
+            prof["sqp_iterations"] = k1[0]["launches"]
+            prof["eager_kernels_per_sqp_iteration"] = (
+                prof["n_device_kernels"] - k1[0]["launches"]) / k1[0]["launches"]
+            nl_prof[name] = prof
+        log(json.dumps({"profile_nonlinear": nl_prof}))
 
-    # ---- 6 result ----
+    # ---- 7 result ----
     log(json.dumps({"main": main_rec}))
     log(json.dumps({"lm": lm_rec}))
+    log(json.dumps({"nonlinear": nl_rec}))
     log(smi)
     log(json.dumps({"kernels": records}))
     log(json.dumps({

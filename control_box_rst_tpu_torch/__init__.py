@@ -15,10 +15,11 @@ Conventions of the port:
   - float32 is the production type, float64 is for tests and oracles, and
     TF32 is switched off.
 
-Ported so far: the config-1 batched MPC solve by SQP
-(``parallel.make_batched_solver`` → ``solvers.sqp_solve`` →
+Ported so far: the batched MPC solves by SQP of config 1 (LTI: the one-shot
+path), config 2 (Van der Pol, multiple shooting) and config 3 (time-optimal
+grid) (``parallel.make_batched_solver`` → ``solvers.sqp_solve`` →
 ``solvers.solve_stage_qp(backend='fused')`` → the hand-written CUDA kernels
-of ``ops/cuda/admm_kernel.py``) and by Levenberg-Marquardt
+of ``ops/cuda/admm_kernel.py``), and the config-1 solve by Levenberg-Marquardt
 (``parallel.make_batched_lm_solver`` → ``solvers.lm_solve`` → the
 block-tridiagonal factor-and-solve kernels of ``ops/cuda/btridiag_kernel.py``).
 """

@@ -7,10 +7,14 @@ handed to the port — is a dict of numpy arrays and static fields (the form
 
 ``ocp_from_numpy(spec)`` keys (arrays are numpy, anything array-like works):
 
-  static:  N, nx, nu, system ("serial_integrators"), time_constant,
-           grid_kind, fd_scheme ("crank_nicolson" | "forward"),
-           cost_integration, dt_mode, cost_integral, lsq_form
-  cost:    Q [nx,nx], R [nu,nu], Qf [nx,nx] (Qf optional)
+  static:  N, nx, nu, system ("serial_integrators" with time_constant |
+           "van_der_pol" with a), grid_kind ("fd" | "ms"),
+           fd_scheme ("crank_nicolson" | "forward"), integrator ("euler",
+           "rk2" … "rk7"), integrator_substeps, cost_integration,
+           dt_mode ("fixed" | "single"), cost ("quadratic" | "minimum_time"),
+           cost_integral, lsq_form
+  cost:    "quadratic": Q [nx,nx], R [nu,nu], Qf [nx,nx] (Qf optional);
+           "minimum_time": weight
   bounds:  x_lb, x_ub [nx], u_lb, u_ub [nu], dt_lb, dt_ub scalars
   refs:    xref [N+1,nx], uref [N,nu]
   bc:      x0 [..., nx], xf [nx] or None, xf_fixed [nx] or None
@@ -27,9 +31,13 @@ from typing import Any, Mapping, Optional
 import numpy as np
 import torch
 
-from control_box_rst_tpu_torch.models.benchmark import SerialIntegratorSystem
+from control_box_rst_tpu_torch.models.benchmark import (
+    SerialIntegratorSystem,
+    VanDerPolOscillator,
+)
 from control_box_rst_tpu_torch.ocp.costs import (
     CompositeCost,
+    MinimumTime,
     QuadraticFinalStateCost,
     QuadraticFormCost,
 )
@@ -57,25 +65,36 @@ def ocp_from_numpy(spec: Mapping[str, Any], dtype=None,
                    device=None) -> TranscribedOCP:
     t = lambda key: _tensor(spec.get(key), dtype, device)
     system_name = spec.get("system", "serial_integrators")
-    if system_name != "serial_integrators":
+    nx, nu = int(spec["nx"]), int(spec["nu"])
+    if system_name == "serial_integrators":
+        system = SerialIntegratorSystem(
+            nx=nx, nu=nu, time_constant=float(spec.get("time_constant", 1.0)))
+    elif system_name == "van_der_pol":
+        system = VanDerPolOscillator(nx=nx, nu=nu, a=float(spec.get("a", 1.0)))
+    else:
         raise NotImplementedError(f"system {system_name!r} is not ported yet")
-    system = SerialIntegratorSystem(
-        nx=int(spec["nx"]), nu=int(spec["nu"]),
-        time_constant=float(spec.get("time_constant", 1.0)),
-    )
     grid = Grid(
         N=int(spec["N"]), kind=spec.get("grid_kind", "fd"),
         fd_scheme=spec.get("fd_scheme", "crank_nicolson"),
+        integrator=spec.get("integrator", "rk4"),
+        integrator_substeps=int(spec.get("integrator_substeps", 1)),
         cost_integration=spec.get("cost_integration", "left_sum"),
         dt_mode=spec.get("dt_mode", "fixed"),
     )
     integral = bool(spec.get("cost_integral", False))
-    costs = [QuadraticFormCost(
-        Q=t("Q"), R=t("R"), integral=integral,
-        lsq_form=bool(spec.get("lsq_form", False)))]
-    if spec.get("Qf") is not None:
-        costs.append(QuadraticFinalStateCost(Qf=t("Qf")))
-    cost = CompositeCost(costs=tuple(costs), integral=integral)
+    lsq_form = bool(spec.get("lsq_form", False))
+    cost_name = spec.get("cost", "quadratic")
+    if cost_name == "minimum_time":
+        cost = MinimumTime(weight=float(spec.get("weight", 1.0)),
+                           integral=integral, lsq_form=lsq_form)
+    elif cost_name == "quadratic":
+        costs = [QuadraticFormCost(
+            Q=t("Q"), R=t("R"), integral=integral, lsq_form=lsq_form)]
+        if spec.get("Qf") is not None:
+            costs.append(QuadraticFinalStateCost(Qf=t("Qf")))
+        cost = CompositeCost(costs=tuple(costs), integral=integral)
+    else:
+        raise NotImplementedError(f"cost {cost_name!r} is not ported yet")
     bounds = Bounds(
         x_lb=t("x_lb"), x_ub=t("x_ub"), u_lb=t("u_lb"), u_ub=t("u_ub"),
         dt_lb=t("dt_lb"), dt_ub=t("dt_ub"),

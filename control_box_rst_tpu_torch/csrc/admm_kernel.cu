@@ -228,15 +228,20 @@ __device__ void round_ops(const QPView& v, float rho, int iters, float sigma,
 #pragma unroll
                 for (int j = 0; j <= i; ++j) {
                     float acc = v.Hd[(size_t)((k * NZ + i) * NZ + j) * BH];
+                    // rho_eq times the sum over rows, not one product per
+                    // row: one rounding of rho_eq, as in the plain version
+                    // (twice the roundoff on stiff columns otherwise)
                     if (k < N) {
+                        float o = Jk[0][i] * Jk[0][j];
 #pragma unroll
-                        for (int r = 0; r < NC; ++r)
-                            acc += rho_eq * Jk[r][i] * Jk[r][j];
+                        for (int r = 1; r < NC; ++r) o += Jk[r][i] * Jk[r][j];
+                        acc += rho_eq * o;
                     }
                     if (k > 0) {
+                        float o = Kp[0][i] * Kp[0][j];
 #pragma unroll
-                        for (int r = 0; r < NC; ++r)
-                            acc += rho_eq * Kp[r][i] * Kp[r][j];
+                        for (int r = 1; r < NC; ++r) o += Kp[r][i] * Kp[r][j];
+                        acc += rho_eq * o;
                     }
                     if (i == j) acc += sigma + RHO_BOX((size_t)(k * NZ + i));
                     S[i][j] = acc;
@@ -1134,13 +1139,20 @@ __device__ void smem_round(const LaneSmem& s, const LaneData& d, int Kst, int t,
 #pragma unroll
                 for (int j = 0; j <= i; ++j) {
                     float acc = Hk[i][j];
+                    // rho_eq times the sum over rows (one rounding of rho_eq,
+                    // as in the plain version and the one-thread-per-lane
+                    // kernels)
                     if (k < N) {
+                        float o = Jk[0][i] * Jk[0][j];
 #pragma unroll
-                        for (int r = 0; r < NC; ++r) acc += rho_eq * Jk[r][i] * Jk[r][j];
+                        for (int r = 1; r < NC; ++r) o += Jk[r][i] * Jk[r][j];
+                        acc += rho_eq * o;
                     }
                     if (k > 0) {
+                        float o = Kp[0][i] * Kp[0][j];
 #pragma unroll
-                        for (int r = 0; r < NC; ++r) acc += rho_eq * Kp[r][i] * Kp[r][j];
+                        for (int r = 1; r < NC; ++r) o += Kp[r][i] * Kp[r][j];
+                        acc += rho_eq * o;
                     }
                     if (i == j) acc += sigma + rbk[i];
                     S[i][j] = acc;

@@ -7,6 +7,12 @@ flagship(N)  → (ocp, cfg): the config-1 OCP — H=N double integrator,
                dt pinned at 0.1 — with its solver settings.
 flagship_lm(N) → (ocp, LMConfig): the same OCP with the settings of the
                Levenberg-Marquardt backend.
+vdp_ms(N)    → (ocp, cfg): config 2 — Van der Pol, multiple shooting (RK4),
+               |u| ≤ 1, dt pinned at 0.1; the nonlinear production
+               configuration (the SQP outer loop runs real iterations).
+time_optimal(N) → (ocp, cfg): config 3 — rest-to-rest double integrator,
+               minimum time, one dt decision variable tied across the
+               intervals; analytic optimum T* = 2√d from x0 = [d, 0].
 entry()      → (fn, example_args): the batched MPC solve on that config.
 """
 from __future__ import annotations
@@ -64,6 +70,76 @@ def flagship_lm(N: int = 50, dtype=None, device=None):
 
     ocp, _ = flagship(N, dtype=dtype, device=device)
     return ocp, LMConfig(max_iter=60)
+
+
+def vdp_ms(N: int = 20, dtype=None, device=None):
+    """Config-2 OCP: Van der Pol, multiple shooting (RK4, one substep), box
+    input bounds, H=N, with its solver settings. ``dtype`` / ``device`` as in
+    ``flagship``."""
+    from control_box_rst_tpu_torch.models import VanDerPolOscillator
+    from control_box_rst_tpu_torch.ocp import (
+        Bounds,
+        CompositeCost,
+        QuadraticFinalStateCost,
+        QuadraticFormCost,
+        multiple_shooting_grid,
+        transcribe,
+    )
+    from control_box_rst_tpu_torch.solvers import QPConfig, SQPConfig
+
+    kw = dict(dtype=resolve_dtype(dtype), device=resolve_device(device))
+    grid = multiple_shooting_grid(N, integrator="rk4", substeps=1)
+    cost = CompositeCost(costs=(
+        QuadraticFormCost(Q=torch.eye(2, **kw), R=0.1 * torch.eye(1, **kw)),
+        QuadraticFinalStateCost(Qf=5.0 * torch.eye(2, **kw)),
+    ))
+    bounds = Bounds.unbounded(2, 1, **kw).with_u(-1.0, 1.0).with_dt(0.1, 0.1)
+    ocp = transcribe(VanDerPolOscillator(), grid, cost, bounds=bounds,
+                     x0=torch.zeros(2, **kw), **kw)
+    # float32-calibrated: the stationarity residual stalls near 1e-4 (the
+    # ADMM dual floor at QP tolerance 1e-5)
+    cfg = SQPConfig(
+        max_iter=20,
+        qp=QPConfig(max_iter=60, iters_per_round=30, tol=1e-5),
+        tol_stat=1e-4, tol_feas=1e-5,
+    )
+    return ocp, cfg
+
+
+def time_optimal(N: int = 20, dtype=None, device=None):
+    """Config-3 OCP: uniform-grid time-optimal control of the double
+    integrator, dt a decision variable tied across the intervals, x0 = [1.5, 0]
+    (a batch replaces it) to xf = 0 fully pinned, H=N, with its solver
+    settings. Analytic optimum T* = 2√d from x0 = [d, 0]; Crank–Nicolson
+    reproduces it exactly. ``make_batched_solver(ocp, cfg, dt_init=0.12)``
+    starts from the reference's initial guess. ``dtype`` / ``device`` as in
+    ``flagship``."""
+    from control_box_rst_tpu_torch.models import DoubleIntegratorContinuous
+    from control_box_rst_tpu_torch.ocp import (
+        Bounds,
+        MinimumTime,
+        finite_differences_variable_grid,
+        transcribe,
+    )
+    from control_box_rst_tpu_torch.solvers import QPConfig, SQPConfig
+
+    kw = dict(dtype=resolve_dtype(dtype), device=resolve_device(device))
+    grid = finite_differences_variable_grid(N, fd_scheme="crank_nicolson")
+    bounds = Bounds.unbounded(2, 1, **kw).with_u(-1.0, 1.0).with_dt(1e-3, 0.5)
+    ocp = transcribe(
+        DoubleIntegratorContinuous(), grid, MinimumTime(), bounds=bounds,
+        x0=torch.tensor([1.5, 0.0], **kw), xf=torch.zeros(2, **kw),
+        xf_fixed=torch.tensor([1.0, 1.0], **kw), **kw,
+    )
+    # backend 'fused' by name, as the reference asks for it: the QP of every
+    # SQP iteration goes to the box-QP kernel (float32 only; a float64 solve
+    # has to ask for 'plain')
+    cfg = SQPConfig(
+        max_iter=25,
+        qp=QPConfig(max_iter=80, iters_per_round=40, tol=1e-5, backend="fused"),
+        tol_stat=3e-4, tol_feas=1e-5,
+    )
+    return ocp, cfg
 
 
 def entry(device=None):

@@ -1,10 +1,17 @@
 from control_box_rst_tpu_torch.ocp.costs import (
     CompositeCost,
+    MinimumTime,
     QuadraticFinalStateCost,
     QuadraticFormCost,
     StageCost,
 )
-from control_box_rst_tpu_torch.ocp.grids import Grid, finite_differences_grid
+from control_box_rst_tpu_torch.ocp.grids import (
+    Grid,
+    finite_differences_grid,
+    finite_differences_variable_grid,
+    multiple_shooting_grid,
+    multiple_shooting_variable_grid,
+)
 from control_box_rst_tpu_torch.ocp.problem import (
     BoundaryConditions,
     Bounds,
@@ -15,7 +22,9 @@ from control_box_rst_tpu_torch.ocp.transcribe import TranscribedOCP, transcribe
 
 __all__ = [
     "StageCost", "QuadraticFormCost", "QuadraticFinalStateCost", "CompositeCost",
-    "Grid", "finite_differences_grid",
+    "MinimumTime",
+    "Grid", "finite_differences_grid", "finite_differences_variable_grid",
+    "multiple_shooting_grid", "multiple_shooting_variable_grid",
     "Trajectory", "Bounds", "References", "BoundaryConditions",
     "TranscribedOCP", "transcribe",
 ]

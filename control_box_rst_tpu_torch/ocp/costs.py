@@ -12,9 +12,12 @@ The least-squares form for the Gauss-Newton / Levenberg-Marquardt solver is
 matrix square roots it needs are taken once, when the cost object is built
 (on the host, in float64), not per evaluation.
 
-So far the port carries the quadratic tracking costs of config 1.
+So far the port carries the quadratic tracking costs of configs 1 and 2 and
+the time-optimal objective of config 3.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -105,6 +108,30 @@ class QuadraticFinalStateCost(StageCost):
 
     def final_residual(self, x, xref):
         return mv_small(self._Qfs, x - xref)
+
+
+@plain_dataclass
+class MinimumTime(StageCost):
+    """Time-optimal objective: total time Σ dt_k (weight 1 per interval).
+
+    ``lsq_form=True`` follows the reference's least-squares mode: the
+    per-interval residual is √weight·dt_k, so the objective becomes
+    weight·Σ dt_k² — the same optimum on a grid with one tied dt, a
+    different one where every dt_k is free. ``stage()`` returns that same
+    value, so SQP and LM optimize one objective. The weight is not scaled
+    with the number of intervals (as in the reference)."""
+
+    weight: float = 1.0
+
+    def stage(self, x, u, dt, xref, uref):
+        if self.lsq_form:
+            return self.weight * dt * dt
+        return self.weight * dt
+
+    def stage_residual(self, x, u, dt, xref, uref):
+        if self.lsq_form:
+            return math.sqrt(self.weight) * dt[..., None]
+        return super().stage_residual(x, u, dt, xref, uref)
 
 
 @plain_dataclass

@@ -7,10 +7,11 @@ share one canonical stage structure (see ``ocp/transcribe.py``):
   stage variable  w_k = [x_k ; u_k ; dt_k]   (nz = nx+nu+1, always)
   interval rows   c_k(w_k, w_{k+1}) = 0      (defect + tie rows)
 
-This slice carries the ``Grid`` description and the uniform fixed-dt
-finite-differences grid; the other constructors come with the slices that
-need them, and the transcription refuses the grid kinds it cannot yet
-evaluate.
+Ported: the ``Grid`` description; the uniform finite-differences grid with
+dt pinned or with one dt tied across the intervals (time-optimal); multiple
+shooting with dt pinned or tied. Per-interval dt, move blocking and
+Hermite-Simpson come with later slices, and the transcription refuses what it
+cannot yet evaluate.
 """
 from __future__ import annotations
 
@@ -50,3 +51,29 @@ def finite_differences_grid(N: int, fd_scheme: str = "crank_nicolson",
     """Uniform full-discretization grid, fixed dt."""
     return Grid(N=N, kind="fd", fd_scheme=fd_scheme,
                 cost_integration=cost_integration, dt_mode="fixed")
+
+
+def finite_differences_variable_grid(N: int, fd_scheme: str = "crank_nicolson",
+                                     cost_integration: str = "left_sum") -> Grid:
+    """Uniform time-optimal grid: one dt decision variable, kept equal across
+    the intervals by tie rows dt_{k+1} − dt_k = 0."""
+    return Grid(N=N, kind="fd", fd_scheme=fd_scheme,
+                cost_integration=cost_integration, dt_mode="single")
+
+
+def multiple_shooting_grid(N: int, integrator: str = "rk4",
+                           substeps: int = 1,
+                           cost_integration: str = "left_sum") -> Grid:
+    """Multiple shooting, fixed dt: defect = solveIVP(x_k, u_k, dt) − x_{k+1}."""
+    return Grid(N=N, kind="ms", integrator=integrator,
+                integrator_substeps=substeps,
+                cost_integration=cost_integration, dt_mode="fixed")
+
+
+def multiple_shooting_variable_grid(N: int, integrator: str = "rk4",
+                                    substeps: int = 1,
+                                    cost_integration: str = "left_sum") -> Grid:
+    """Time-optimal multiple shooting, one dt tied across the intervals."""
+    return Grid(N=N, kind="ms", integrator=integrator,
+                integrator_substeps=substeps,
+                cost_integration=cost_integration, dt_mode="single")

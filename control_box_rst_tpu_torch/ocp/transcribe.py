@@ -7,7 +7,7 @@ w_k = [x_k ; u_k ; dt_k] (nz = nx+nu+1; unused components are pinned via
 ``fixed_mask``). The NLP is
 
   min  Σ_{k<N} stage_term_k(w_k, w_{k+1})  +  final(x_N)
-  s.t. c_k(w_k, w_{k+1}) = 0                      k < N   (defect rows)
+  s.t. c_k(w_k, w_{k+1}) = 0                      k < N   (defect + tie rows)
        r_k(w_k) ∈ [rl_k, ru_k]                    k ≤ N   (general rows)
        lb_k ≤ w_k ≤ ub_k                                   (box; pins incl.)
 
@@ -25,9 +25,11 @@ Variable-horizon support: ``stage_mask[k] ∈ {0,1}`` deactivates tail
 intervals by replacing their defect with the identity chain x_{k+1} − x_k = 0
 and zeroing their cost, so only array values change, never shapes.
 
-Ported so far: fixed-dt finite-difference grids with left-sum / trapezoidal
-cost integration and no general rows (``ng = 0``). Grid kinds, tie rows and
-constraint objects that later slices bring are refused at construction.
+Ported so far: finite-difference and multiple-shooting grids, with dt pinned
+or with one dt tied across the intervals (tie rows dt_{k+1} − dt_k = 0 for
+k < N−1), left-sum / trapezoidal cost integration and no general rows
+(``ng = 0``). Per-interval dt, move blocking, the schemes and integrators and
+the constraint objects that later slices bring are refused at construction.
 """
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ from control_box_rst_tpu_torch.ocp.problem import (
     Trajectory,
 )
 from control_box_rst_tpu_torch.ops.collocation import get_fd_collocation
+from control_box_rst_tpu_torch.ops.integrators import make_integrator
 from control_box_rst_tpu_torch.utils.precision import resolve_device, resolve_dtype
 from control_box_rst_tpu_torch.utils.tree import plain_dataclass, tree_to
 
@@ -76,17 +79,18 @@ class TranscribedOCP:
 
     def __post_init__(self):
         g = self.grid
-        if g.kind != "fd":
-            raise NotImplementedError(
-                f"grid kind {g.kind!r} is not ported yet (multiple shooting "
-                "comes with the nonlinear-configs slice)"
-            )
+        if g.kind not in ("fd", "ms"):
+            raise ValueError(f"unknown grid kind {g.kind!r}")
         if self.system.continuous_time:
-            get_fd_collocation(g.fd_scheme)  # raises for unported schemes
-        if g.dt_is_variable:
+            # raise for unported schemes and integrators
+            if g.kind == "fd":
+                get_fd_collocation(g.fd_scheme)
+            else:
+                make_integrator(g.integrator, g.integrator_substeps)
+        if g.dt_mode not in ("fixed", "single"):
             raise NotImplementedError(
-                f"dt_mode {g.dt_mode!r} is not ported yet (time-optimal grids "
-                "come with the nonlinear-configs slice)"
+                f"dt_mode {g.dt_mode!r} is not ported yet (non-uniform grids "
+                "come with the grid-adaptation slice)"
             )
         if g.has_u_tie:
             raise NotImplementedError(
@@ -121,9 +125,14 @@ class TranscribedOCP:
         return self.nx + self.nu + 1
 
     @property
+    def n_tie(self) -> int:
+        """Tie rows per interval: one for a dt tied across the intervals."""
+        return 1 if self.grid.has_dt_tie else 0
+
+    @property
     def nc(self) -> int:
-        """Interval equality rows: the defect (tie rows are not ported)."""
-        return self.nx
+        """Interval equality rows: defect + ties."""
+        return self.nx + self.n_tie
 
     @property
     def ng(self) -> int:
@@ -155,16 +164,28 @@ class TranscribedOCP:
     # ---------------- defect ----------------
     def _defect_fn(self):
         """Returns defect(x, u, x1, dt) for the grid's scheme."""
+        g = self.grid
         f = self.system
         if not f.continuous_time:
-            # discrete-time system: x⁺ = f(x, u); one-step defect
+            # discrete-time system: x⁺ = f(x, u); one-step defect, both kinds
             return lambda x, u, x1, dt: f(x, u) - x1
-        scheme = get_fd_collocation(self.grid.fd_scheme)
+        if g.kind == "ms":
+            integ = make_integrator(g.integrator, g.integrator_substeps)
+            return lambda x, u, x1, dt: integ.solve_ivp(f, x, u, dt) - x1
+        scheme = get_fd_collocation(g.fd_scheme)
         return lambda x, u, x1, dt: scheme(f, x, u, x1, dt)
 
-    def interval_residual(self, w, w1, m):
-        """c_k(w_k, w_{k+1}) ∈ R^nc: masked defect. ``w``, ``w1`` [..., nz]
-        are the two stages of an interval, ``m`` [...] its stage-mask entry."""
+    @property
+    def tie_mask(self) -> torch.Tensor:
+        """[N] 1.0 where interval k carries a dt tie row: k < N−1 (the last
+        interval would tie the real dt to stage N's dummy dt)."""
+        m = self.stage_mask
+        return (torch.arange(self.N, device=m.device) < self.N - 1).to(m.dtype)
+
+    def interval_residual(self, w, w1, m, tie):
+        """c_k(w_k, w_{k+1}) ∈ R^nc: masked defect + tie rows. ``w``, ``w1``
+        [..., nz] are the two stages of an interval, ``m`` [...] its
+        stage-mask entry, ``tie`` [...] its ``tie_mask`` entry."""
         nx, nu = self.nx, self.nu
         x, u, dt = self.split_w(w, nx, nu)
         x1 = w1[..., :nx]
@@ -174,12 +195,16 @@ class TranscribedOCP:
         defect = self._defect_fn()(x, u, x1, dt_safe)
         # inactive interval → identity chain (keeps the tail pinned)
         mm = m[..., None]
-        return mm * defect + (1.0 - mm) * (x1 - x)
+        defect = mm * defect + (1.0 - mm) * (x1 - x)
+        if not self.grid.has_dt_tie:
+            return defect
+        dt1 = w1[..., nx + nu]
+        return torch.cat([defect, (tie * (dt1 - dt))[..., None]], dim=-1)
 
     def interval_residuals(self, W: torch.Tensor) -> torch.Tensor:
         """[..., N, nc] all interval equality rows."""
         return self.interval_residual(
-            W[..., :-1, :], W[..., 1:, :], self.stage_mask
+            W[..., :-1, :], W[..., 1:, :], self.stage_mask, self.tie_mask
         )
 
     def defects(self, traj: Trajectory) -> torch.Tensor:
@@ -191,8 +216,8 @@ class TranscribedOCP:
         forward-mode AD per interval vmapped over stages (and lanes)."""
         jac = torch.func.jacfwd(self.interval_residual, argnums=(0, 1))
         fn = torch.func.vmap(jac)  # over stages
-        fn = _vmap_over_lead(fn, W.dim() - 2, 2, 1)
-        J, K = fn(W[..., :-1, :], W[..., 1:, :], self.stage_mask)
+        fn = _vmap_over_lead(fn, W.dim() - 2, 2, 2)
+        J, K = fn(W[..., :-1, :], W[..., 1:, :], self.stage_mask, self.tie_mask)
         return J, K, self.interval_residuals(W)
 
     # ---------------- cost ----------------

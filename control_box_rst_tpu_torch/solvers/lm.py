@@ -128,7 +128,7 @@ class LMProblem:
         self.nr = self.n_lsq + ocp.nc + ocp.nz  # rows per interval block
 
     # ---------------- residuals ----------------
-    def interval_res(self, w, w1, xref, uref, m, lb, ub, free, w_eq, w_b):
+    def interval_res(self, w, w1, xref, uref, m, tie, lb, ub, free, w_eq, w_b):
         """Stage-blocked residual r_k(w_k, w_{k+1}) ∈ R^nr. ``w``, ``w1``
         [..., nz]; the stage data (``xref`` … ``free``) and the penalty
         weights [...] broadcast over leading dims."""
@@ -139,8 +139,8 @@ class LMProblem:
         scale = m
         if ocp.cost.integral:
             scale = m * torch.sqrt(torch.clamp(dt, min=1e-12))
-        # equality: interval rows (defect)
-        c = ocp.interval_residual(w, w1, m)
+        # equality: interval rows (defect + ties)
+        c = ocp.interval_residual(w, w1, m, tie)
         # box violation at stage k
         viol = _hinge(lb - w) + _hinge(w - ub)
         return torch.cat([
@@ -163,7 +163,7 @@ class LMProblem:
 
     def _stage_data(self):
         refs = self.ocp.refs
-        return (refs.xref[:-1], refs.uref, self.ocp.stage_mask,
+        return (refs.xref[:-1], refs.uref, self.ocp.stage_mask, self.ocp.tie_mask,
                 self.lb[:-1], self.ub[:-1], self.free[:-1])
 
     def all_residuals(self, W, w_eq, w_b):
@@ -182,8 +182,8 @@ class LMProblem:
         Jᵀr (g [B, N+1, nz]), with χ² = rᵀr [B] of the same residuals."""
         free, N = self.free, self.ocp.N
         jac = torch.func.jacfwd(_with_value(self.interval_res), argnums=(0, 1), has_aux=True)
-        over_stages = torch.func.vmap(jac, in_dims=(0,) * 8 + (None, None))
-        over_lanes = torch.func.vmap(over_stages, in_dims=(0, 0) + (None,) * 6 + (0, 0))
+        over_stages = torch.func.vmap(jac, in_dims=(0,) * 9 + (None, None))
+        over_lanes = torch.func.vmap(over_stages, in_dims=(0, 0) + (None,) * 7 + (0, 0))
         (J, K), r_int = over_lanes(
             W[:, :-1], W[:, 1:], *self._stage_data(), w_eq, w_b)
         J = J * free[:-1, None, :]

@@ -180,7 +180,7 @@ def sqp_solve(
     if cfg.psd_clamp or not getattr(ocp.cost, "convex", True):
         raise NotImplementedError(
             "the PSD clamp of indefinite Hessian blocks is not ported yet "
-            "(nonlinear-configs slice)"
+            "(other-solvers slice: no ported configuration has a nonconvex cost)"
         )
 
     traj0 = ocp.apply_boundary(traj0)

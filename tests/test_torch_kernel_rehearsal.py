@@ -17,6 +17,11 @@ the same numpy inputs from a seed, float32:
     rounds, the per-lane ``it`` equal; 5e-6 for the block-tridiagonal solve,
     the bound of tests/test_torch_btridiag_kernel.py).
 
+The box-QP kernels are built for both (nz, nc) specialisations that the
+ported configurations launch: (4, 2) (configs 1 and 2) and (4, 3) (config 3,
+whose dt tie adds an interval row), the latter also at config 3's horizon
+(Kst = 21) with Hd, J, K per lane as its SQP iterations hand them over.
+
 Skipped where there is no g++.
 """
 import ctypes
@@ -32,6 +37,7 @@ from torch_kernel_util import misaligned
 
 torch.set_num_threads(1)
 NZ, NC = 4, 2
+SHAPES = ((4, 2), (4, 3))  # (nz, nc) of the box-QP library builds
 BASE = (1e-6, 1.6, 1e3)  # sigma, alpha, rho_eq_scale
 
 
@@ -52,8 +58,11 @@ def libs(tmp_path_factory):
         pytest.skip("no g++: the CUDA sources cannot be rehearsed on this machine")
     build = _shim_build()
     out = tmp_path_factory.mktemp("cuda_host_shim")
-    admm = ctypes.CDLL(str(build(ak.SOURCE, out / "libadmm.so", [f"-DNZ={NZ}", f"-DNC={NC}"])))
-    ak.declare(admm, NZ, NC)
+    admm = {}
+    for nz, nc in SHAPES:
+        admm[nz, nc] = ctypes.CDLL(str(build(
+            ak.SOURCE, out / f"libadmm_{nz}_{nc}.so", [f"-DNZ={nz}", f"-DNC={nc}"])))
+        ak.declare(admm[nz, nc], nz, nc)
     bts = {}
     for nz in (4, 3):
         bts[nz] = ctypes.CDLL(str(build(bk.SOURCE, out / f"libbt{nz}.so", [f"-DNZ={nz}"])))
@@ -61,7 +70,7 @@ def libs(tmp_path_factory):
     return admm, bts
 
 
-def _qps(B, Kst, shared, seed=0):
+def _qps(B, Kst, shared, seed=0, NC=NC):
     rng = np.random.default_rng(seed)
     N = Kst - 1
     A = rng.standard_normal((B, Kst, NZ, NZ)) * 0.3
@@ -79,19 +88,38 @@ def _qps(B, Kst, shared, seed=0):
     return args
 
 
-@pytest.mark.parametrize("kkt", [False, True], ids=["admm-exit", "kkt-exit"])
-@pytest.mark.parametrize("shared", [False, True], ids=["per-lane-HJK", "shared-HJK"])
-@pytest.mark.parametrize("B", [9, 13, 21])
-def test_boxqp_solve_kernels_on_the_host(libs, B, shared, kkt):
+def _boxqp_cases():
+    """(B, shared, kkt, nc, Kst) with their ids: every case at (4, 2) and
+    Kst = 7, the same at nc = 3 (B = 9 left out: with shared Hd/J/K all its
+    lanes leave at one round, which checks less), and config 3's horizon with
+    per-lane Hd/J/K at both nc."""
+    cases = []
+    for nc, Kst, Bs, shareds in ((2, 7, (9, 13, 21), (False, True)),
+                                 (3, 7, (13, 21), (False, True)),
+                                 (2, 21, (13,), (False,)), (3, 21, (13,), (False,))):
+        for B in Bs:
+            for shared in shareds:
+                for kkt in (False, True):
+                    name = "{}-{}-{}".format(
+                        B, "shared-HJK" if shared else "per-lane-HJK",
+                        "kkt-exit" if kkt else "admm-exit")
+                    if (nc, Kst) != (2, 7):
+                        name = f"nc{nc}-Kst{Kst}-{name}"
+                    cases.append(pytest.param(B, shared, kkt, nc, Kst, id=name))
+    return cases
+
+
+@pytest.mark.parametrize("B, shared, kkt, nc, Kst", _boxqp_cases())
+def test_boxqp_solve_kernels_on_the_host(libs, B, shared, kkt, nc, Kst):
     """More lanes than the 2 persistent blocks of 2 warps have teams: teams
     take further lanes from the queue, lanes leave at different rounds."""
-    admm, _ = libs
-    Kst, lanes_per_warp = 7, ak.LANES_PER_WARP
-    args, dims = _qps(B, Kst, shared), (B, Kst, NZ, NC)
+    admm = libs[0][NZ, nc]
+    lanes_per_warp = ak.LANES_PER_WARP
+    args, dims = _qps(B, Kst, shared, NC=nc), (B, Kst, NZ, nc)
     scal = (6, 4, 2e-4, *BASE, 1e-4, 1e4) + ((5e-4, 5e-5) if kkt else (0.0, 0.0))
     # a stand-in device small enough that the lanes outnumber the teams
     max_smem = ctypes.c_int.in_dll(admm, "shim_max_smem")
-    max_smem.value = 2 * lanes_per_warp * ak.state_bytes_per_lane(Kst, NZ, NC, shared)
+    max_smem.value = 2 * lanes_per_warp * ak.state_bytes_per_lane(Kst, NZ, nc, shared)
     try:
         smem = ak._launch_smem(admm, "boxqp_solve", args, dims, scal, 0)
         info = dict(ak.LAUNCH_INFO["boxqp_solve"])
@@ -107,10 +135,63 @@ def test_boxqp_solve_kernels_on_the_host(libs, B, shared, kkt):
     np.testing.assert_allclose(smem[0].numpy(), plain[0].numpy(), rtol=0, atol=1e-4)
 
 
+def _first_sqp_iteration_qps(config, B):
+    """The box QPs that config 2's / config 3's outer SQP loop hands the
+    kernel's wrapper in its first iteration, for the first B lanes of the
+    chip run's batch (Kst = 21, Hd/J/K per lane), caught at the wrapper, and
+    the wrapper's scalars in argument order."""
+    from control_box_rst_tpu_torch import entry
+    from control_box_rst_tpu_torch.parallel import make_batched_solver
+
+    if config == "vdp_ms":
+        ocp, cfg = entry.vdp_ms(device="cpu")
+        x0s = np.random.default_rng(1).uniform(-1.5, 1.5, (4096, 2))[:B]
+    else:
+        ocp, cfg = entry.time_optimal(device="cpu")
+        d = np.random.default_rng(2).uniform(0.5, 2.0, (4096,))[:B]
+        x0s = np.stack([d, np.zeros_like(d)], axis=1)
+    caught, real = [], ak.boxqp_solve
+    ak.boxqp_solve = lambda *a, **kw: caught.append((a, kw)) or real(*a, **kw)
+    try:
+        make_batched_solver(
+            ocp, cfg.replace(max_iter=1, qp=cfg.qp.replace(backend="fused")),
+            dt_init=0.1 if config == "vdp_ms" else 0.12, device="cpu",
+        )(x0s.astype(np.float32))
+    finally:
+        ak.boxqp_solve = real
+    (args, kw), = caught
+    keys = ("n_rounds", "iters", "tol", "sigma", "alpha", "rho_eq_scale", "rho_min",
+            "rho_max", "tol_stat", "tol_feas")
+    return list(args), tuple(kw[k] for k in keys)
+
+
+@pytest.mark.parametrize("config", ["vdp_ms", "time_optimal"])
+def test_boxqp_solve_kernel_on_nonlinear_qps_is_as_close_as_plain(libs, config):
+    """The shared-memory kernel on the QPs of the nonlinear paths (config 3's
+    are stiff: Hd = 0 and a dt column ~100x the others, condition ~3e5) is as
+    close to the float64 plain version as the float32 plain version (x, y_d,
+    y_b, 2x + 1e-4), and takes the plain version's rounds. Summing J'J before
+    the one product by rho_eq is what keeps it there: a product per row left
+    config 3's duals 6x farther than the plain version."""
+    args, scal = _first_sqp_iteration_qps(config, 32)
+    B, Kst, nz = args[0].shape[:3]
+    nc = args[1].shape[2]
+    assert (Kst, nc) == (21, 2 if config == "vdp_ms" else 3)
+    assert not ak._lane_invariant(*args[:3])
+    kern = ak._launch_smem(libs[0][nz, nc], "boxqp_solve", args, (B, Kst, nz, nc), scal, 0)
+    plain = ak.boxqp_solve_plain(*args, *scal)
+    f64 = ak.boxqp_solve_plain(*[a.double() for a in args], *scal)
+    assert torch.equal(kern[6], plain[6])
+    for i in (0, 2, 3):
+        e_k = float((kern[i].double() - f64[i]).abs().max())
+        e_p = float((plain[i].double() - f64[i]).abs().max())
+        assert e_k <= 2.0 * e_p + 1e-4, (i, e_k, e_p)
+
+
 @pytest.mark.parametrize("case", [(1, 5), (3, 6), (40, 4), (9, 9)],
                          ids=lambda c: "B{}_Kst{}".format(*c))
 def test_admm_round_kernels_on_the_host(libs, case):
-    admm, _ = libs
+    admm = libs[0][NZ, NC]
     B, Kst = case
     args, dims = _qps(B, Kst, shared=B % 2 == 1, seed=B), (B, Kst, NZ, NC)
     scal = (3, *BASE)
@@ -127,7 +208,7 @@ def test_quotient_from_the_reciprocal_is_the_division_on_the_host(libs):
     """The kernels' quotient against the division, bit for bit (the card runs
     the same check on 16 M pairs): mantissas and exponents from a seed, zeros,
     infinities, NaNs and subnormals mixed in."""
-    admm, _ = libs
+    admm = libs[0][NZ, NC]
     rng = np.random.default_rng(1)
     n = 200_000
     def operands():

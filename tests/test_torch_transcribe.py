@@ -3,8 +3,12 @@ on the config-1 OCP at N=8, float64, tolerance 1e-10 (the same formulas on
 both sides; derivatives are exact AD on both, so they differ by rounding).
 
 A second OCP variant (integral cost, trapezoidal integration, a masked tail
-interval) covers the branches config 1 itself does not take. Every JAX call
-goes through ``jax.jit`` (see the note in tests/test_torch_ops.py).
+interval) covers the branches config 1 itself does not take. The nonlinear
+configurations add four: config 2 (Van der Pol, multiple shooting, RK4),
+config 3 (the time-optimal grid with its dt tie rows, ``MinimumTime``) and
+its least-squares form, and multiple shooting with a tied dt (RK4 with three
+substeps: the two mechanisms composed). Every JAX call goes through
+``jax.jit`` (see the note in tests/test_torch_ops.py).
 """
 import jax
 import jax.numpy as jnp
@@ -18,17 +22,45 @@ from control_box_rst_tpu_torch import convert
 from control_box_rst_tpu_torch.models import DoubleIntegratorContinuous as TorchDI
 from control_box_rst_tpu_torch.ocp.problem import Trajectory as TorchTrajectory
 
-from torch_port_util import jax_flagship, spec_from_jax_ocp, to_np
+from torch_port_util import (
+    jax_flagship,
+    jax_time_optimal,
+    jax_vdp_ms,
+    spec_from_jax_ocp,
+    to_np,
+)
 
 torch.set_num_threads(1)
 TOL = 1e-10
 N = 8
-VARIANTS = ["config1", "trapezoidal_masked"]
+VARIANTS = ["config1", "trapezoidal_masked", "vdp_ms", "time_optimal",
+            "time_optimal_lsq", "vdp_ms_variable_dt"]
+# variants whose interval Jacobians and cost Hessian are constant in W
+LTI = {"config1", "trapezoidal_masked"}
+
+
+def _jax_nonlinear(variant):
+    if variant == "vdp_ms":
+        return jax_vdp_ms(N, jnp.float64)[0]
+    if variant == "time_optimal":
+        return jax_time_optimal(N, jnp.float64)[0]
+    if variant == "time_optimal_lsq":
+        ocp_j = jax_time_optimal(N, jnp.float64)[0]
+        return ocp_j.replace(cost=ocp_j.cost.replace(lsq_form=True, weight=2.5))
+    from control_box_rst_tpu.ocp import multiple_shooting_variable_grid
+
+    ocp_j = jax_vdp_ms(N, jnp.float64)[0]
+    return ocp_j.replace(
+        grid=multiple_shooting_variable_grid(N, "rk4", 3),
+        bounds=ocp_j.bounds.with_dt(0.05, 0.2),
+    )
 
 
 def _ocps(variant):
     if variant == "config1":
         ocp_j, _ = jax_flagship(N, jnp.float64)
+    elif variant != "trapezoidal_masked":
+        ocp_j = _jax_nonlinear(variant)
     else:
         ocp_j, _ = jax_flagship(
             N, jnp.float64, cost_integration="trapezoidal", integral=True
@@ -42,10 +74,13 @@ def _ocps(variant):
     return ocp_j, ocp_t
 
 
-def _random_W(seed=0):
+def _random_W(seed=0, variant="config1"):
+    """A stage matrix from a seed; for the nonlinear variants dt varies from
+    stage to stage (0.08 to 0.12), so the tie rows of a tied-dt grid are not
+    zero."""
     rng = np.random.default_rng(seed)
     W = rng.standard_normal((N + 1, 4)) * 0.5
-    W[:, 3] = 0.1
+    W[:, 3] = 0.1 if variant in LTI else rng.uniform(0.08, 0.12, N + 1)
     W[-1, 2:] = 0.0
     return W
 
@@ -116,7 +151,7 @@ def test_pack_unpack_apply_boundary(variant):
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_interval_residuals_and_jacobians(variant):
     ocp_j, ocp_t = _ocps(variant)
-    W = _random_W()
+    W = _random_W(0, variant)
     Wj, Wt = jnp.asarray(W), torch.from_numpy(W)
     _cmp(ocp_t.interval_residuals(Wt), jax.jit(ocp_j.interval_residuals)(Wj))
     Jj, Kj, cj = jax.jit(ocp_j.interval_jacobians)(Wj)
@@ -131,7 +166,7 @@ def test_interval_residuals_and_jacobians(variant):
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_objective_gradient_hessian(variant):
     ocp_j, ocp_t = _ocps(variant)
-    W = _random_W(2)
+    W = _random_W(2, variant)
     Wj, Wt = jnp.asarray(W), torch.from_numpy(W)
     _cmp(ocp_t.objective_from_W(Wt), jax.jit(ocp_j.objective_from_W)(Wj))
     _cmp(ocp_t.objective(ocp_t.unpack(Wt)),
@@ -145,7 +180,7 @@ def test_batched_W_equals_per_lane(variant):
     """[B, N+1, nz] through every transcription function gives each lane what
     the unbatched call gives it (1e-12: same arithmetic, batch written out)."""
     _, ocp_t = _ocps(variant)
-    Ws = torch.from_numpy(np.stack([_random_W(s) for s in (3, 4, 5)]))
+    Ws = torch.from_numpy(np.stack([_random_W(s, variant) for s in (3, 4, 5)]))
     c = ocp_t.interval_residuals(Ws)
     J, K, _ = ocp_t.interval_jacobians(Ws)
     f = ocp_t.objective_from_W(Ws)
@@ -170,11 +205,11 @@ def test_bounds_pins_and_structure(variant):
     np.testing.assert_array_equal(to_np(lb_t), np.asarray(lb_j))
     np.testing.assert_array_equal(to_np(ub_t), np.asarray(ub_j))
     np.testing.assert_array_equal(to_np(ocp_t.fixed_mask()), np.asarray(jax.jit(ocp_j.fixed_mask)()))
-    assert ocp_t.lti_structure == ocp_j.lti_structure is True
-    assert ocp_t.constant_hessian == ocp_j.constant_hessian is True
-    W = torch.from_numpy(_random_W())
+    assert ocp_t.lti_structure == ocp_j.lti_structure == (variant in LTI)
+    assert ocp_t.constant_hessian == ocp_j.constant_hessian == (variant in LTI)
+    W = torch.from_numpy(_random_W(0, variant))
     r, rl, ru = ocp_t.general_rows(W)
-    rj, _, _ = jax.jit(ocp_j.general_rows)(jnp.asarray(_random_W()))
+    rj, _, _ = jax.jit(ocp_j.general_rows)(jnp.asarray(_random_W(0, variant)))
     assert r.shape == rl.shape == ru.shape == rj.shape == (N + 1, 0)
     assert ocp_t.general_row_jacobians(W).shape == (N + 1, 0, 4)
 
@@ -202,8 +237,8 @@ def test_unported_structure_is_refused():
 
     _, ocp_t = _ocps("config1")
     for grid in (
-        Grid(N=N, kind="ms"),
-        Grid(N=N, dt_mode="single"),
+        Grid(N=N, dt_mode="per_interval"),
+        Grid(N=N, kind="ms", integrator="adaptive_step"),
         Grid(N=N, fd_scheme="backward"),
         Grid(N=N, u_blocks=tuple(range(N))),
     ):

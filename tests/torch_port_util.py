@@ -9,10 +9,11 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from control_box_rst_tpu.models import DoubleIntegratorContinuous
+from control_box_rst_tpu.models import DoubleIntegratorContinuous, VanDerPolOscillator
 from control_box_rst_tpu.ocp import (
     Bounds,
     CompositeCost,
+    MinimumTime,
     QuadraticFinalStateCost,
     QuadraticFormCost,
     finite_differences_grid,
@@ -68,20 +69,52 @@ def jax_flagship(N, dtype, cost_integration="left_sum", integral=False):
     return cast_tree(ocp, dtype), cfg
 
 
+def jax_vdp_ms(N, dtype):
+    """The config-2 OCP and solver settings of the JAX package
+    (``__graft_entry__._vdp_ms``), cast to ``dtype``."""
+    from __graft_entry__ import _vdp_ms
+
+    ocp, cfg = _vdp_ms(N)
+    return cast_tree(ocp, dtype), cfg
+
+
+def jax_time_optimal(N, dtype):
+    """The config-3 OCP and solver settings of the JAX package
+    (``__graft_entry__._time_optimal``), cast to ``dtype``."""
+    from __graft_entry__ import _time_optimal
+
+    ocp, cfg = _time_optimal(N)
+    return cast_tree(ocp, dtype), cfg
+
+
 def spec_from_jax_ocp(ocp):
-    """numpy dict of a JAX config-1-style TranscribedOCP (quadratic stage
-    cost, alone or composed with a quadratic terminal cost), the form
-    ``convert.ocp_from_numpy`` reads."""
-    form, final = ocp.cost.costs if hasattr(ocp.cost, "costs") else (ocp.cost, None)
+    """numpy dict of a JAX TranscribedOCP of the ported kinds — a serial
+    integrator chain or Van der Pol; FD or multiple-shooting grid, dt pinned
+    or tied; a quadratic stage cost (alone or composed with a quadratic
+    terminal cost) or ``MinimumTime`` — the form ``convert.ocp_from_numpy``
+    reads."""
     opt = lambda a: None if a is None else np.asarray(a)
+    sys_ = ocp.system
+    if isinstance(sys_, VanDerPolOscillator):
+        system = dict(system="van_der_pol", a=float(sys_.a))
+    else:
+        system = dict(system="serial_integrators",
+                      time_constant=float(sys_.time_constant))
+    if isinstance(ocp.cost, MinimumTime):
+        cost = dict(cost="minimum_time", weight=float(ocp.cost.weight),
+                    lsq_form=bool(ocp.cost.lsq_form))
+    else:
+        form, final = ocp.cost.costs if hasattr(ocp.cost, "costs") else (ocp.cost, None)
+        cost = dict(cost="quadratic", lsq_form=bool(form.lsq_form),
+                    Q=np.asarray(form.Q), R=np.asarray(form.R),
+                    Qf=None if final is None else np.asarray(final.Qf))
     return dict(
-        N=ocp.grid.N, nx=ocp.nx, nu=ocp.nu, system="serial_integrators",
-        time_constant=float(ocp.system.time_constant),
+        N=ocp.grid.N, nx=ocp.nx, nu=ocp.nu, **system,
         grid_kind=ocp.grid.kind, fd_scheme=ocp.grid.fd_scheme,
+        integrator=ocp.grid.integrator,
+        integrator_substeps=ocp.grid.integrator_substeps,
         cost_integration=ocp.grid.cost_integration, dt_mode=ocp.grid.dt_mode,
-        cost_integral=bool(ocp.cost.integral), lsq_form=bool(form.lsq_form),
-        Q=np.asarray(form.Q), R=np.asarray(form.R),
-        Qf=None if final is None else np.asarray(final.Qf),
+        cost_integral=bool(ocp.cost.integral), **cost,
         x_lb=np.asarray(ocp.bounds.x_lb), x_ub=np.asarray(ocp.bounds.x_ub),
         u_lb=np.asarray(ocp.bounds.u_lb), u_ub=np.asarray(ocp.bounds.u_ub),
         dt_lb=np.asarray(ocp.bounds.dt_lb), dt_ub=np.asarray(ocp.bounds.dt_ub),
