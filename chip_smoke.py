@@ -6,14 +6,15 @@
 Drives the port's paths on the card — the config-1 batched MPC solve by SQP
 (H=50 double integrator, B=32768 lanes, float32) through
 ``make_batched_solver``, the same batch by Levenberg-Marquardt through
-``make_batched_lm_solver``, and the nonlinear SQP solves of config 2 (Van der
-Pol, multiple shooting, H=20) and config 3 (time-optimal double integrator,
-H=20, a dt tied across the intervals) at B=4096 through
-``make_batched_solver`` — after building every CUDA kernel of those paths
-from the sources in this checkout and holding each kernel against its plain
-PyTorch version on the same inputs. There is no CPU path: without a CUDA
-device the script exits non-zero and prints no result. Any phase that fails
-raises, and the run fails with it.
+``make_batched_lm_solver``, the nonlinear SQP solves of config 2 (Van der Pol,
+multiple shooting, H=20) and config 3 (time-optimal double integrator, H=20, a
+dt tied across the intervals) at B=4096 through ``make_batched_solver``, and
+the closed loop of config 5 (4096 rollouts of 20 MPC steps of the config-1 OCP
+against the simulated double integrator) through ``make_batched_closed_loop``
+— after building every CUDA kernel of those paths from the sources in this
+checkout and holding each kernel against its plain PyTorch version on the same
+inputs. There is no CPU path: without a CUDA device the script exits non-zero
+and prints no result. Any phase that fails raises, and the run fails with it.
 
 Phases
   1 device   require CUDA; card name and power limit (nvidia-smi)
@@ -70,21 +71,42 @@ Phases
              file, config 3 max |T - 2 sqrt(d)| <= 1e-3 on every lane;
              solves/s (best of 3 batches), SQP iterations, peak device
              memory, p50 / p99 of 20 single solves of each
-  7 result   one JSON line with every kernel's record, then the contract line
+  7 closed_loop  config 5 at B=4096, T=20 (``entry.rollouts``); gates (the
+             reference's scenario benchmark): usable-step fraction >= 0.99,
+             max |u_fused - u_plain| <= 1e-3 on the same batch (plain =
+             backend 'plain', no kernel), the box-QP kernel launched once per
+             step for the warm-started one-shot solve and once per lock-step
+             outer SQP iteration (launches == the sum over steps of the
+             lock-step SQP iterations > 0, one-shot calls counted apart), Hd/J/K
+             hoisted once and passed as one shared copy; the kernel against
+             its plain version on the one-shot QPs of step 5 (shifted warm
+             start, nonzero warm duals; as close to the float64 plain version
+             as the float32 plain version, rounds within one); rollouts/s and
+             MPC steps/s (best of 3 batches), outer SQP iterations per step,
+             mean |x_T|, peak device memory, p50 / p99 of one controller step
+             at B=1; then 5 steps under the LM controller (LMConfig(max_iter=
+             60)): the in-place block-tridiagonal kernel launched once per
+             lock-step LM iteration, every u finite, usable fraction reported
+  8 result   one JSON line with every kernel's record, then the contract line
 
-Output: progress lines (with ``--profile`` a ``{"profile": ...}`` line with the
-device time by kernel and the hand-written kernels launch by launch, a
+Output: progress lines (with ``--profile`` a ``{"profile": ...}`` line with
+the device time by kernel and the hand-written kernels launch by launch, a
 ``{"kernels_alone_ms": ...}`` line with K1 and K2 on both routes and K4's
 one-thread-per-lane route by themselves, and a ``{"profile_nonlinear": ...}``
 line: one traced batch of configs 2 and 3, with the eager kernels per SQP
-iteration), then a ``{"main": ...}`` line, a ``{"lm": ...}`` line, a
-``{"nonlinear": ...}`` line, the nvidia-smi line, a ``{"kernels": [...]}``
+iteration, and a ``{"profile_closed_loop": ...}`` line: one traced rollout
+batch, with its device idle share and the eager kernels per MPC step), then a
+``{"main": ...}`` line, a ``{"lm": ...}`` line, a ``{"nonlinear": ...}`` line,
+a ``{"closed_loop": ...}`` line, the nvidia-smi line, a ``{"kernels": [...]}``
 line (per kernel the contract's keys and, where a kernel was redesigned,
 ``earlier_ms`` / ``vs_earlier``: the kernel it replaced on the same inputs,
 and ``launch``: route, shared memory per lane, resident lanes per SM,
 registers per thread; the box-QP solve kernel adds ``launches_by_path`` and
-``shapes``, its record at the nonlinear paths' shapes), and as the last line
-``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+``shapes``, its records at the nonlinear paths' shapes and on the closed
+loop's step-5 QPs; the in-place block-tridiagonal kernel adds
+``launches_by_path``: LM on config 1 and the LM closed loop), and as the last
+line ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
+...}}``.
 """
 from __future__ import annotations
 
@@ -115,6 +137,10 @@ LONG_BATCH = 128  # lanes of the long-horizon checks
 NL_BATCH = 4096    # lanes of the nonlinear paths (configs 2 and 3)
 NL_TRIALS = 3      # nonlinear paths: best of NL_TRIALS single batches
 NL_SINGLE = 20     # single solves of each nonlinear config for its p50 / p99
+CL_BATCH = 4096    # rollouts of the closed-loop path (config 5)
+CL_TRIALS = 3      # closed loop: best of CL_TRIALS rollout batches
+CL_CHECK_STEP = 5  # the MPC step whose warm-started one-shot QPs K1 is held to
+CL_LM_STEPS = 5    # steps of the closed loop under the LM controller
 CONV_GATE = 0.99
 ERR_GATE = 1e-3
 # published peaks of one H100 SXM (NVIDIA data sheet): the roofline yardstick
@@ -1127,6 +1153,242 @@ def phase_main(ocp, cfg, x0s_np, trials: int, reps: int):
     )
 
 
+def catch_boxqp_calls(ak, keep_call: int = -1):
+    """Patch K1's wrapper to record, per call, whether it is a one-shot solve
+    (the in-kernel KKT exit on: ``tol_stat`` > 0) and whether Hd/J/K reached
+    it as one shared copy; the arguments of the one-shot call number
+    ``keep_call`` are kept. Returns (record, restore)."""
+    rec = dict(one_shot=0, outer=0, per_lane_hjk_calls=0, kept=None)
+    real = ak.boxqp_solve
+
+    def catch(*args, **kw):
+        one_shot = kw.get("tol_stat", 0.0) > 0.0
+        if one_shot and rec["one_shot"] == keep_call:
+            rec["kept"] = (list(args), dict(kw))
+        rec["one_shot" if one_shot else "outer"] += 1
+        rec["per_lane_hjk_calls"] += int(not ak._lane_invariant(*args[:3]))
+        return real(*args, **kw)
+
+    ak.boxqp_solve = catch
+
+    def restore():
+        ak.boxqp_solve = real
+
+    return rec, restore
+
+
+def closed_loop_step_kernel(args, kw, reps: int):
+    """K1 against its plain version on the warm-started one-shot QPs of one
+    MPC step of the rollout batch (shifted W, nonzero warm duals, shared
+    Hd/J/K, production exits): as close to the float64 plain version as the
+    float32 plain version (slack 2x + 1e-4, as on the nonlinear paths' QPs),
+    per-lane rounds within one of the plain version. Returns the record of
+    this shape."""
+    from control_box_rst_tpu_torch.ops.cuda import admm_kernel as ak
+
+    B, Kst, nz = args[3].shape
+    nc, iters = args[1].shape[-2], kw["iters"]
+    if not ak._lane_invariant(*args[:3]):
+        raise AssertionError("closed loop: Hd/J/K reached the kernel per lane")
+    if not float(args[10].abs().max()) > 0.0:
+        raise AssertionError("closed loop: the one-shot QP was not warm-started from nonzero duals")
+    out_k = ak.boxqp_solve(*args, **kw)
+    torch.cuda.synchronize()
+    launch = dict(ak.LAUNCH_INFO["boxqp_solve"])
+    if launch.get("route") != "smem" or not launch.get("shared_hjk"):
+        raise AssertionError(f"closed loop step QPs: expected shared memory, shared Hd/J/K, took {launch}")
+    t0 = time.perf_counter()
+    out_p = ak.boxqp_solve_plain(*args, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    out_d = ak.boxqp_solve_plain(*as_f64(args), **kw)
+    errs = {}
+    for i, nm in ((0, "x"), (2, "y_d"), (3, "y_b")):
+        errs[nm] = assert_as_close_as_plain(
+            f"boxqp_solve closed-loop step {CL_CHECK_STEP} {nm}", out_k[i], out_p[i], out_d[i],
+            floor=1e-4)
+    d_rounds = (out_k[6] - out_p[6]).abs() / iters
+    if not bool((d_rounds <= 1).all()):
+        raise AssertionError(
+            f"boxqp_solve closed-loop step {CL_CHECK_STEP}: per-lane rounds differ from the "
+            f"plain version by up to {float(d_rounds.max())}")
+    call = lambda: ak.boxqp_solve(*args, **kw)
+    ms = min(time_ms(call, reps), time_ms(call, reps))
+    alone = kernels_alone_ms({"step": (call, "boxqp_solve_smem_kernel")}, reps)["step"]
+    rounds = float((out_k[6] / iters).sum())  # rounds this run's data needed
+    t_ops = rounds * ak.solve_flops_per_round(Kst, nz, nc, iters, True) / PEAK_FP32_PER_S * 1e3
+    t_bytes = ak.io_bytes(Kst, nz, nc, B, True, shared_hjk=True) / PEAK_BYTES_PER_S * 1e3
+    return dict(
+        step=CL_CHECK_STEP, Kst=Kst, nz=nz, nc=nc, batch=B, per_lane_hjk=False,
+        n_rounds=kw["n_rounds"], iters=iters, ms=ms, alone_ms=alone, plain_ms=plain_ms,
+        bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+        bound_bytes_ms=t_bytes, bound_ops_ms=t_ops,
+        max_abs_err=float((out_k[0] - out_p[0]).abs().max()),
+        err_vs_f64={k: v[0] for k, v in errs.items()},
+        plain_err_vs_f64={k: v[1] for k, v in errs.items()},
+        same_it_frac=float((d_rounds == 0).float().mean()),
+        mean_rounds=rounds / B, max_rounds=float(out_k[6].max()) / iters,
+        warm_y_d_max=float(args[10].abs().max()), launch=launch,
+    )
+
+
+def phase_closed_loop(x0s_np, trials: int, reps: int):
+    """Config 5: B rollouts of T MPC steps of the config-1 OCP against the
+    simulated double integrator through ``make_batched_closed_loop``, every
+    step's warm-started one-shot QP and every lock-step outer SQP iteration
+    through K1 with one shared copy of Hd/J/K. Gates (the reference's,
+    ``bench_scaling.py``): usable-step fraction >= 0.99; max |u_fused -
+    u_plain| <= 1e-3 on the same batch (plain = ``backend='plain'``); K1
+    launches == sum over steps of (1 one-shot + the step's lock-step outer
+    iterations) > 0. Then K1 on the one-shot QPs of step CL_CHECK_STEP
+    against its plain version, and the closed loop under the LM controller
+    for CL_LM_STEPS steps (K4 once per lock-step LM iteration, finite u).
+    Returns (K1 launches, K4 launches, record, record of K1 at the step's
+    shape, the rollout function)."""
+    from control_box_rst_tpu_torch.control import PredictiveController
+    from control_box_rst_tpu_torch.entry import flagship_lm, rollouts
+    from control_box_rst_tpu_torch.ops.cuda import admm_kernel as ak
+    from control_box_rst_tpu_torch.ops.cuda import btridiag_kernel as bk
+    from control_box_rst_tpu_torch.parallel import make_batched_closed_loop
+
+    ctrl, plant, T, dt = rollouts(N=50)  # device=None: the card
+    B = x0s_np.shape[0]
+    x0s = torch.as_tensor(x0s_np, device="cuda")
+    roll = make_batched_closed_loop(ctrl, plant, T, dt)
+    if ctrl.sqp_cfg.qp.backend != "fused" or ctrl.hoisted.Jm is None or ctrl.hoisted.Jm.dim() != 3:
+        raise AssertionError("closed loop: expected the fused backend and one hoisted J/K/Hd")
+    roll(x0s[:256])  # warm-up
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    calls, restore = catch_boxqp_calls(ak, keep_call=CL_CHECK_STEP)
+    ak.reset_launch_counts()
+    try:
+        res = roll(x0s)
+        torch.cuda.synchronize()
+        n_launch = ak.LAUNCHES["boxqp_solve"]
+    finally:
+        restore()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    route = dict(ak.LAUNCH_INFO["boxqp_solve"])
+    u, ok, sqp_iters = res.u, res.ok, res.info["sqp_iters"]
+    if u.shape != (B, T, 1) or not bool(torch.isfinite(u).all()):
+        raise AssertionError(f"closed loop: u has shape {tuple(u.shape)} or non-finite values")
+    if res.x_true.shape != (B, T + 1, 2) or not bool(torch.isfinite(res.x_true).all()):
+        raise AssertionError("closed loop: x_true has the wrong shape or non-finite values")
+    lock_step = sqp_iters.amax(dim=0)  # [T]: 1 one-shot + the step's outer iterations
+    want = int(lock_step.sum())
+    log(f"closed loop: boxqp_solve launched {n_launch} time(s) ({calls['one_shot']} one-shot, "
+        f"{calls['outer']} outer SQP iterations) for {T} steps, lock-step SQP iterations "
+        f"{lock_step.tolist()}, last launch {route}")
+    if n_launch <= 0 or n_launch != want or calls["one_shot"] != T \
+            or calls["one_shot"] + calls["outer"] != n_launch:
+        raise AssertionError(
+            f"closed loop: {n_launch} boxqp_solve launches ({calls['one_shot']} one-shot, "
+            f"{calls['outer']} outer), expected {want} = sum over {T} steps of the lock-step "
+            "SQP iterations")
+    if calls["per_lane_hjk_calls"] or route.get("route") != "smem" or not route.get("shared_hjk"):
+        raise AssertionError(
+            f"closed loop: {calls['per_lane_hjk_calls']} calls with per-lane Hd/J/K, last {route}")
+    usable = float(ok.float().mean())
+    if usable < CONV_GATE:
+        raise AssertionError(f"closed loop: usable-step fraction {usable:.4f} < {CONV_GATE}")
+
+    # the same batch through the plain backend (no kernel): the reference's
+    # fused-vs-XLA gate
+    plain_ctrl = ctrl.replace(cfg=ctrl.cfg.replace(qp=ctrl.cfg.qp.replace(backend="plain")))
+    roll_plain = make_batched_closed_loop(plain_ctrl, plant, T, dt)
+    ak.reset_launch_counts()
+    t0 = time.perf_counter()
+    res_p = roll_plain(x0s)
+    torch.cuda.synchronize()
+    plain_rollout_s = time.perf_counter() - t0
+    if ak.LAUNCHES["boxqp_solve"]:
+        raise AssertionError("closed loop: the plain backend launched the box-QP kernel")
+    u_dev = float((u - res_p.u).abs().max())
+    lane_dev = (u - res_p.u).abs().amax(dim=(1, 2))
+    log(f"closed loop: max |u_fused - u_plain| {u_dev:.3e} (lanes above 1e-4: "
+        f"{int((lane_dev > 1e-4).sum())}), plain usable {float(res_p.ok.float().mean()):.4f}")
+    if not (u_dev <= ERR_GATE):
+        raise AssertionError(f"closed loop: max |u_fused - u_plain| {u_dev:.3e} > {ERR_GATE}")
+
+    step_rec = closed_loop_step_kernel(*calls["kept"], reps)
+    kinds = dict(one_shot=calls["one_shot"], outer_sqp_iterations=calls["outer"])
+    del calls
+
+    best = float("inf")
+    for _ in range(trials):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        roll(x0s)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+
+    # one controller step at B = 1, over the T steps of one rollout
+    def single_rollout():
+        x = x0s[:1]
+        carry = ctrl.init_carry(x)
+        lats = []
+        for k in range(T):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            carry, out = ctrl.step(carry, x, k * dt, dt)
+            torch.cuda.synchronize()
+            lats.append(time.perf_counter() - t0)
+            x = plant.step(x, torch.where(out.ok[:, None], out.u, torch.zeros_like(out.u)), dt)
+        return np.asarray(lats)
+
+    single_rollout()
+    lats = single_rollout()
+
+    # the LM controller (K4 once per lock-step LM iteration)
+    lm_ocp, lm_cfg = flagship_lm(N=50)
+    lm_ctrl = PredictiveController(nx=2, nu=1, ocp=lm_ocp, dt=dt, solver="lm", lm_cfg=lm_cfg)
+    roll_lm = make_batched_closed_loop(lm_ctrl, plant, CL_LM_STEPS, dt)
+    roll_lm(x0s[:256])
+    torch.cuda.synchronize()
+    bk.reset_launch_counts()
+    t0 = time.perf_counter()
+    res_lm = roll_lm(x0s)
+    torch.cuda.synchronize()
+    lm_s = time.perf_counter() - t0
+    lm_launches = dict(bk.LAUNCHES)
+    lm_lock = res_lm.info["sqp_iters"].amax(dim=0)
+    log(f"closed loop (LM): btridiag_factor_solve_inplace launched "
+        f"{lm_launches['btridiag_factor_solve_inplace']} time(s) for lock-step LM iterations "
+        f"{lm_lock.tolist()}")
+    if lm_launches["btridiag_factor_solve_inplace"] != int(lm_lock.sum()) \
+            or lm_launches["btridiag_factor_solve_inplace"] <= 0 or lm_launches["btridiag_factor_solve"]:
+        raise AssertionError(f"closed loop (LM): launches {lm_launches}, lock-step {lm_lock.tolist()}")
+    if not bool(torch.isfinite(res_lm.u).all()):
+        raise AssertionError("closed loop (LM): non-finite u")
+
+    outer = (sqp_iters - 1).float()
+    rec = dict(
+        batch=B, t_steps=T, dt=dt, rollouts_per_s=B / best, mpc_steps_per_s=B * T / best,
+        rollout_batch_ms=best * 1e3, usable_step_frac=usable, max_u_dev_vs_plain=u_dev,
+        plain_usable_step_frac=float(res_p.ok.float().mean()), plain_rollout_s=plain_rollout_s,
+        boxqp_solve_launches=n_launch,
+        boxqp_solve_launches_by_kind=kinds,
+        lock_step_sqp_iters=lock_step.tolist(),
+        mean_outer_sqp_iters_per_step=float(outer.mean()),
+        max_outer_sqp_iters_per_step=int(outer.max()),
+        mean_final_state_norm=float(res.x_true[:, -1].norm(dim=-1).mean()),
+        kernel_route=route, peak_device_memory_gib=peak_gb,
+        p50_single_step_ms=float(np.percentile(lats, 50) * 1e3),
+        p99_single_step_ms=float(np.percentile(lats, 99) * 1e3), single_steps=T,
+        lm=dict(
+            t_steps=CL_LM_STEPS, rollout_batch_ms=lm_s * 1e3,
+            usable_step_frac=float(res_lm.ok.float().mean()),
+            btridiag_factor_solve_inplace_launches=lm_launches["btridiag_factor_solve_inplace"],
+            lock_step_lm_iters=lm_lock.tolist(),
+            mean_lm_iters=float(res_lm.info["sqp_iters"].float().mean()),
+            mean_final_state_norm=float(res_lm.x_true[:, -1].norm(dim=-1).mean()),
+        ),
+    )
+    return n_launch, lm_launches["btridiag_factor_solve_inplace"], rec, step_rec, roll
+
+
 def lm_quality(label, U, chi2, x0s_np):
     """The LM gate against the float64 golden file (see ``phase_lm``): returns
     the quality record of one pass, raises where it misses the gate."""
@@ -1396,10 +1658,18 @@ def main() -> int:
     launches, main_rec = phase_main(ocp, cfg, x0s_np, TRIALS, REPS)
     lm_launches, lm_rec = phase_lm(ocp, lm_cfg, x0s_np, LM_TRIALS)
     nl_launches, nl_rec, nl_solvers = phase_nonlinear(problems, NL_TRIALS, NL_SINGLE)
-    # each count from its own path's run; K1 carries one count per path
-    k1_paths = {"sqp_config1": launches["boxqp_solve"], **nl_launches}
-    launches = {**launches, **lm_launches, "boxqp_solve": sum(k1_paths.values())}
+    cl_k1, cl_k4, cl_rec, cl_step_rec, cl_roll = phase_closed_loop(
+        x0s_np[:CL_BATCH], CL_TRIALS, KERNEL_REPS)
+    records[0]["shapes"]["closed_loop"] = cl_step_rec
+    # each count from its own path's run; K1 and K4 carry one count per path
+    k1_paths = {"sqp_config1": launches["boxqp_solve"], **nl_launches, "closed_loop": cl_k1}
+    k4_paths = {"lm_config1": lm_launches["btridiag_factor_solve_inplace"], "closed_loop_lm": cl_k4}
+    launches = {**launches, **lm_launches, "boxqp_solve": sum(k1_paths.values()),
+                "btridiag_factor_solve_inplace": sum(k4_paths.values())}
     records[0]["launches_by_path"] = k1_paths
+    for r in records:
+        if r["name"] == "btridiag_factor_solve_inplace":
+            r["launches_by_path"] = k4_paths
     for r in records:
         r["launches"] = launches[r["name"]]
         if r["on_main_path"] and r["launches"] <= 0:
@@ -1432,11 +1702,20 @@ def main() -> int:
                 prof["n_device_kernels"] - k1[0]["launches"]) / k1[0]["launches"]
             nl_prof[name] = prof
         log(json.dumps({"profile_nonlinear": nl_prof}))
+        prof = phase_profile({"closed_loop": (cl_roll, CL_BATCH)}, x0s_np)["closed_loop"]
+        k1 = [v for k, v in prof["own_kernels"].items() if "boxqp_solve" in k]
+        if len(k1) != 1:
+            raise AssertionError(f"closed loop: the profiler saw {list(prof['own_kernels'])}")
+        prof["mpc_steps"] = cl_rec["t_steps"]
+        prof["eager_kernels_per_mpc_step"] = (
+            prof["n_device_kernels"] - k1[0]["launches"]) / cl_rec["t_steps"]
+        log(json.dumps({"profile_closed_loop": prof}))
 
     # ---- 7 result ----
     log(json.dumps({"main": main_rec}))
     log(json.dumps({"lm": lm_rec}))
     log(json.dumps({"nonlinear": nl_rec}))
+    log(json.dumps({"closed_loop": cl_rec}))
     log(smi)
     log(json.dumps({"kernels": records}))
     log(json.dumps({

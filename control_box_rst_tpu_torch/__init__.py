@@ -19,9 +19,12 @@ Ported so far: the batched MPC solves by SQP of config 1 (LTI: the one-shot
 path), config 2 (Van der Pol, multiple shooting) and config 3 (time-optimal
 grid) (``parallel.make_batched_solver`` → ``solvers.sqp_solve`` →
 ``solvers.solve_stage_qp(backend='fused')`` → the hand-written CUDA kernels
-of ``ops/cuda/admm_kernel.py``), and the config-1 solve by Levenberg-Marquardt
+of ``ops/cuda/admm_kernel.py``), the config-1 solve by Levenberg-Marquardt
 (``parallel.make_batched_lm_solver`` → ``solvers.lm_solve`` → the
-block-tridiagonal factor-and-solve kernels of ``ops/cuda/btridiag_kernel.py``).
+block-tridiagonal factor-and-solve kernels of ``ops/cuda/btridiag_kernel.py``),
+and the closed loop of config 5 (``parallel.make_batched_closed_loop`` →
+``sim.run_closed_loop`` → ``control.PredictiveController``, warm-started SQP
+or LM at every MPC step, against ``sim.SimulatedPlant``).
 """
 
 __version__ = "0.1.0"

@@ -20,6 +20,10 @@ handed to the port — is a dict of numpy arrays and static fields (the form
   bc:      x0 [..., nx], xf [nx] or None, xf_fixed [nx] or None
   mask:    stage_mask [N]
 
+``mpc_carry_from_numpy`` takes the fields of an ``MPCCarry`` (W, y_dyn,
+y_gen, y_box, u_prev, n_active, feas_prev), so that both packages can be
+handed the same mid-rollout carry.
+
 Every function here takes ``dtype`` (``None`` means float32) and ``device``
 (``None`` means the card, and raises when there is none; the CPU has to be
 asked for with ``device="cpu"``).
@@ -31,6 +35,7 @@ from typing import Any, Mapping, Optional
 import numpy as np
 import torch
 
+from control_box_rst_tpu_torch.control.predictive import MPCCarry
 from control_box_rst_tpu_torch.models.benchmark import (
     SerialIntegratorSystem,
     VanDerPolOscillator,
@@ -128,3 +133,14 @@ def sqp_warm_start_from_numpy(d: Mapping[str, Any], dtype=None,
                               device=None) -> SQPWarmStart:
     keys = ("W", "y_dyn", "y_gen", "y_box")
     return SQPWarmStart(*(_tensor(d[k], dtype, device) for k in keys))
+
+
+def mpc_carry_from_numpy(d: Mapping[str, Any], dtype=None,
+                         device=None) -> MPCCarry:
+    """An ``MPCCarry`` from numpy arrays (a carry of the JAX package, batched
+    or not); ``n_active`` becomes int32, the rest ``dtype``."""
+    floats = {k: _tensor(d[k], dtype, device)
+              for k in ("W", "y_dyn", "y_gen", "y_box", "u_prev", "feas_prev")}
+    n_active = torch.as_tensor(
+        np.array(d["n_active"]), device=resolve_device(device)).to(torch.int32)
+    return MPCCarry(n_active=n_active, **floats)

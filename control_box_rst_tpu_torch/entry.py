@@ -13,6 +13,10 @@ vdp_ms(N)    → (ocp, cfg): config 2 — Van der Pol, multiple shooting (RK4),
 time_optimal(N) → (ocp, cfg): config 3 — rest-to-rest double integrator,
                minimum time, one dt decision variable tied across the
                intervals; analytic optimum T* = 2√d from x0 = [d, 0].
+rollouts(N)  → (controller, plant, T_steps, dt): config 5 — the config-1
+               OCP under a PredictiveController against the simulated
+               double integrator (RK4, 4 substeps, no noise), 20 steps of
+               0.1; ``parallel.make_batched_closed_loop`` takes it.
 entry()      → (fn, example_args): the batched MPC solve on that config.
 """
 from __future__ import annotations
@@ -140,6 +144,22 @@ def time_optimal(N: int = 20, dtype=None, device=None):
         tol_stat=3e-4, tol_feas=1e-5,
     )
     return ocp, cfg
+
+
+def rollouts(N: int = 50, dtype=None, device=None):
+    """Config 5: closed-loop MPC of the config-1 OCP (``flagship(N)``) against
+    the simulated continuous double integrator, as the reference's scenario
+    benchmark builds it. Returns (controller, plant, T_steps=20, dt=0.1).
+    ``dtype`` / ``device`` as in ``flagship``; the controller runs there."""
+    from control_box_rst_tpu_torch.control import PredictiveController
+    from control_box_rst_tpu_torch.models import DoubleIntegratorContinuous
+    from control_box_rst_tpu_torch.sim import SimulatedPlant
+
+    ocp, cfg = flagship(N, dtype=dtype, device=device)
+    ctrl = PredictiveController(
+        nx=2, nu=1, ocp=ocp, dt=0.1, cfg=cfg, device=device, dtype=dtype)
+    plant = SimulatedPlant(system=DoubleIntegratorContinuous())
+    return ctrl, plant, 20, 0.1
 
 
 def entry(device=None):

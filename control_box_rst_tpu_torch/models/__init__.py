@@ -4,6 +4,7 @@ from control_box_rst_tpu_torch.models.benchmark import (
     SerialIntegratorSystem,
     VanDerPolOscillator,
 )
+from control_box_rst_tpu_torch.models.filters import OneStepPredictor
 
 __all__ = ["SystemDynamics", "SerialIntegratorSystem", "DoubleIntegratorContinuous",
-           "VanDerPolOscillator"]
+           "VanDerPolOscillator", "OneStepPredictor"]

@@ -76,9 +76,18 @@ class TranscribedOCP:
     bc: BoundaryConditions = None
     refs: References = None
     stage_mask: torch.Tensor = None  # [N] 1.0 = interval active
+    # [N] 1.0 where interval k carries a dt tie row: k < N−1 (the last
+    # interval would tie the real dt to stage N's dummy dt). Made once, here,
+    # from ``stage_mask``'s device and dtype; ``replace`` and ``to`` keep it.
+    tie_mask: Optional[torch.Tensor] = None
 
     def __post_init__(self):
         g = self.grid
+        if self.tie_mask is None or self.tie_mask.shape[-1] != g.N:
+            m = self.stage_mask
+            object.__setattr__(
+                self, "tie_mask",
+                (torch.arange(g.N, device=m.device) < g.N - 1).to(m.dtype))
         if g.kind not in ("fd", "ms"):
             raise ValueError(f"unknown grid kind {g.kind!r}")
         if self.system.continuous_time:
@@ -174,13 +183,6 @@ class TranscribedOCP:
             return lambda x, u, x1, dt: integ.solve_ivp(f, x, u, dt) - x1
         scheme = get_fd_collocation(g.fd_scheme)
         return lambda x, u, x1, dt: scheme(f, x, u, x1, dt)
-
-    @property
-    def tie_mask(self) -> torch.Tensor:
-        """[N] 1.0 where interval k carries a dt tie row: k < N−1 (the last
-        interval would tie the real dt to stage N's dummy dt)."""
-        m = self.stage_mask
-        return (torch.arange(self.N, device=m.device) < self.N - 1).to(m.dtype)
 
     def interval_residual(self, w, w1, m, tie):
         """c_k(w_k, w_{k+1}) ∈ R^nc: masked defect + tie rows. ``w``, ``w1``

@@ -1,4 +1,4 @@
-"""Batched MPC solves.
+"""Batched MPC solves and closed-loop rollouts.
 
 Counterpart of the JAX package's ``parallel/sharded_solve.py`` — single
 device only so far (a ``mesh`` comes with the multi-device slice). Each MPC
@@ -11,11 +11,22 @@ from typing import Optional
 
 import torch
 
+from control_box_rst_tpu_torch.control.predictive import PredictiveController
 from control_box_rst_tpu_torch.ocp.problem import Trajectory
 from control_box_rst_tpu_torch.ocp.transcribe import TranscribedOCP
+from control_box_rst_tpu_torch.sim.closed_loop import ClosedLoopResult, run_closed_loop
+from control_box_rst_tpu_torch.sim.plant import SimulatedPlant
 from control_box_rst_tpu_torch.solvers.lm import LMConfig, lm_solve
 from control_box_rst_tpu_torch.solvers.sqp import SQPConfig, hoist_structure, sqp_solve
 from control_box_rst_tpu_torch.utils.precision import resolve_device, resolve_dtype
+from control_box_rst_tpu_torch.utils.tree import tree_to
+
+
+def _refuse_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "sharding over a device mesh is not ported yet (multi-device slice G)"
+        )
 
 
 def make_batched_solver(
@@ -33,10 +44,7 @@ def make_batched_solver(
     is moved to that device/dtype once, here; x0s may be a tensor or a numpy
     array.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharding over a device mesh is not ported yet (multi-device slice)"
-        )
+    _refuse_mesh(mesh)
     device = resolve_device(device)
     dtype = resolve_dtype(dtype)
     cfg = cfg or SQPConfig()
@@ -95,3 +103,33 @@ def make_batched_lm_solver(
         return res.traj.U, res.chi2, res.status, res.iterations, res.feas_res
 
     return solve
+
+
+def make_batched_closed_loop(
+    controller: PredictiveController,
+    plant: SimulatedPlant,
+    T_steps: int,
+    dt: float,
+    mesh=None,
+    device=None,
+    dtype=None,
+):
+    """Returns fn(x0s [B, nx], generator=None) → ``ClosedLoopResult`` of B
+    closed-loop rollouts of T_steps each (results [B, T(+1), …]).
+
+    The controller is rebuilt for ``device`` / ``dtype`` (``None``: the card,
+    raising when there is none; float32): its OCP is moved there and its
+    constant structure hoisted once, and ``cfg.qp.backend=None`` resolves to
+    the fused box-QP kernel for a float32 solve on the card. x0s may be a
+    tensor or a numpy array; ``generator`` is what noisy plants draw from."""
+    _refuse_mesh(mesh)
+    device = resolve_device(device)
+    dtype = resolve_dtype(dtype)
+    controller = controller.replace(device=device, dtype=dtype)
+    plant = tree_to(plant, device, dtype)
+
+    def rollout(x0s, generator=None) -> ClosedLoopResult:
+        x0s = torch.as_tensor(x0s).to(device=device, dtype=dtype)
+        return run_closed_loop(plant, controller, x0s, T_steps, dt, generator=generator)
+
+    return rollout

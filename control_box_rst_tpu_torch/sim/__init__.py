@@ -1,0 +1,14 @@
+from control_box_rst_tpu_torch.sim.benchmarks import benchmark_varying_initial_state
+from control_box_rst_tpu_torch.sim.closed_loop import (
+    ClosedLoopResult,
+    run_closed_loop,
+    run_open_loop,
+)
+from control_box_rst_tpu_torch.sim.observer import NoObserver, SteadyStateKalmanObserver
+from control_box_rst_tpu_torch.sim.plant import GaussianNoise, SimulatedPlant
+
+__all__ = [
+    "SimulatedPlant", "GaussianNoise", "NoObserver", "SteadyStateKalmanObserver",
+    "ClosedLoopResult", "run_closed_loop", "run_open_loop",
+    "benchmark_varying_initial_state",
+]
