@@ -8,10 +8,13 @@ Drives the port's paths on the card — the config-1 batched MPC solve by SQP
 ``make_batched_solver``, the same batch by Levenberg-Marquardt through
 ``make_batched_lm_solver``, the nonlinear SQP solves of config 2 (Van der Pol,
 multiple shooting, H=20) and config 3 (time-optimal double integrator, H=20, a
-dt tied across the intervals) at B=4096 through ``make_batched_solver``, and
-the closed loop of config 5 (4096 rollouts of 20 MPC steps of the config-1 OCP
-against the simulated double integrator) through ``make_batched_closed_loop``
-— after building every CUDA kernel of those paths from the sources in this
+dt tied across the intervals) at B=4096 through ``make_batched_solver``, the
+closed loop of config 5 (4096 rollouts of 20 MPC steps of the config-1 OCP
+against the simulated double integrator) through ``make_batched_closed_loop``,
+and config 4 (the time-optimal double integrator on the non-uniform
+multiple-shooting grid, a free dt per interval) open loop at B=4096 and under
+MPC with the RedundantControls grid adaptation (4096 rollouts of 25 steps,
+every lane its own active horizon) — after building every CUDA kernel of those paths from the sources in this
 checkout and holding each kernel against its plain PyTorch version on the same
 inputs. There is no CPU path: without a CUDA device the script exits non-zero
 and prints no result. Any phase that fails raises, and the run fails with it.
@@ -87,23 +90,43 @@ Phases
              at B=1; then 5 steps under the LM controller (LMConfig(max_iter=
              60)): the in-place block-tridiagonal kernel launched once per
              lock-step LM iteration, every u finite, usable fraction reported
-  8 result   one JSON line with every kernel's record, then the contract line
+  8 nonuniform  config 4 (``entry.nonuniform_ms_timeopt``, N=10, Kst=11) at
+             B=4096 by ``sqp_solve``: converged >= 0.99, max |T - 2 sqrt(d)|
+             <= 1e-3 on every lane (T = sum of the dt_k), K1 launches == the
+             lock-step SQP iterations; solves/s (best of 3), SQP iterations,
+             peak memory, p50 / p99 of 20 single solves. The case-9
+             controller (``entry.nonuniform_ms_timeopt_adaptive``: N=15,
+             Kst=16, RedundantControls, n_active_init=10, no shift) for 4096
+             rollouts of 25 steps (lane 0 from [1.5, 0]): K1 at every step
+             once per lock-step SQP iteration, Hd/J/K per lane on every call;
+             lane 0 meets the golden test's contract; the usable-step
+             fraction of the first 64 rollouts no lower than the JAX
+             package's own float32 run of them; rollouts/s, an n_active
+             histogram by step, B=1 step p50 / p99; the same batch by
+             ``backend='plain'`` over the first 10 steps (equal n_active
+             share and max |u_fused - u_plain| there, reported). K1 against its plain version on
+             config 4's first-iteration QPs (Kst=11) and on the QPs of
+             adaptive step 8 (Kst=16, lanes of mixed horizons, identity-chain
+             rows checked), held as on configs 2 and 3
+  9 result   one JSON line with every kernel's record, then the contract line
 
 Output: progress lines (with ``--profile`` a ``{"profile": ...}`` line with
 the device time by kernel and the hand-written kernels launch by launch, a
 ``{"kernels_alone_ms": ...}`` line with K1 and K2 on both routes and K4's
 one-thread-per-lane route by themselves, and a ``{"profile_nonlinear": ...}``
 line: one traced batch of configs 2 and 3, with the eager kernels per SQP
-iteration, and a ``{"profile_closed_loop": ...}`` line: one traced rollout
-batch, with its device idle share and the eager kernels per MPC step), then a
-``{"main": ...}`` line, a ``{"lm": ...}`` line, a ``{"nonlinear": ...}`` line,
-a ``{"closed_loop": ...}`` line, the nvidia-smi line, a ``{"kernels": [...]}``
+iteration, a ``{"profile_closed_loop": ...}`` line: one traced rollout
+batch, with its device idle share and the eager kernels per MPC step, and a
+``{"profile_nonuniform": ...}`` line: one traced config-4 batch and 5 traced
+steps of its adaptive rollouts), then a ``{"main": ...}`` line, a ``{"lm":
+...}`` line, a ``{"nonlinear": ...}`` line, a ``{"closed_loop": ...}`` line,
+a ``{"nonuniform": ...}`` line, the nvidia-smi line, a ``{"kernels": [...]}``
 line (per kernel the contract's keys and, where a kernel was redesigned,
 ``earlier_ms`` / ``vs_earlier``: the kernel it replaced on the same inputs,
 and ``launch``: route, shared memory per lane, resident lanes per SM,
 registers per thread; the box-QP solve kernel adds ``launches_by_path`` and
-``shapes``, its records at the nonlinear paths' shapes and on the closed
-loop's step-5 QPs; the in-place block-tridiagonal kernel adds
+``shapes``, its records at the nonlinear paths' shapes, on the closed
+loop's step-5 QPs and at config 4's two horizons; the in-place block-tridiagonal kernel adds
 ``launches_by_path``: LM on config 1 and the LM closed loop), and as the last
 line ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
 ...}}``.
@@ -141,6 +164,16 @@ CL_BATCH = 4096    # rollouts of the closed-loop path (config 5)
 CL_TRIALS = 3      # closed loop: best of CL_TRIALS rollout batches
 CL_CHECK_STEP = 5  # the MPC step whose warm-started one-shot QPs K1 is held to
 CL_LM_STEPS = 5    # steps of the closed loop under the LM controller
+NU_BATCH = 4096    # lanes, and rollouts, of config 4
+NU_TRIALS = 3      # config 4 open loop: best of NU_TRIALS single batches
+NU_CL_TRIALS = 1   # config 4 closed loop: best of the counted and NU_CL_TRIALS more batches
+NU_SINGLE = 20     # single config-4 solves for the open loop's p50 / p99
+NU_CHECK_STEP = 8  # the adaptive MPC step whose QPs (mixed horizons) K1 is held to
+NU_PLAIN_STEPS = 10  # steps of config 4's rollouts also run by the plain backend
+# the JAX package's own float32 run of config 4's adaptive closed loop on the
+# first 64 rollouts (tools/config4_calibration.py --closed-loop): their
+# usable-step fraction, which the port's first 64 rollouts may not fall below
+NU_REF_LANES, NU_REF_USABLE = 64, 0.9475
 CONV_GATE = 0.99
 ERR_GATE = 1e-3
 # published peaks of one H100 SXM (NVIDIA data sheet): the roofline yardstick
@@ -677,7 +710,9 @@ def kernels_alone_ms(calls, reps: int):
     launches, by itself: ``calls`` maps label -> (fn, kernel-name tag);
     torch.profiler over ``reps`` calls after a warm-up, the device time of the
     kernels whose name holds the tag over the launches the profiler recorded
-    (it may record fewer than were made)."""
+    (it may record fewer than were made, and once recorded none: then the
+    label gets None, "not measured", and a line says so). A diagnostic, not a
+    gate: the wrappers' times come from CUDA events."""
     from torch.profiler import ProfilerActivity, profile
 
     out = {}
@@ -690,9 +725,9 @@ def kernels_alone_ms(calls, reps: int):
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages() if tag in e.key]
         launches = sum(e.count for e in events)
-        if launches == 0:
-            raise AssertionError(f"{label}: the profiler recorded no launch of {tag}")
-        out[label] = sum(e.device_time_total for e in events) / 1e3 / launches
+        out[label] = sum(e.device_time_total for e in events) / 1e3 / launches if launches else None
+        if not launches:
+            log(f"{label}: the profiler recorded no launch of {tag}; kernel-alone time not measured")
     return out
 
 
@@ -921,75 +956,82 @@ def first_iteration_qps(ocp, cfg, dt_init, x0s):
     return list(caught[0][0]), caught[0][1]
 
 
+def per_lane_k1_record(name, args, kw, reps: int):
+    """K1 against its plain version on QPs with Hd/J/K per lane, production
+    exits. Gates: as close to the float64 plain version as the float32 plain
+    version (slack 2x + 1e-4), per-lane rounds within one of the plain
+    version, B=1 and B=8 give the first lanes' bits through both routes.
+    Returns the record of these shapes."""
+    from control_box_rst_tpu_torch.ops.cuda import admm_kernel as ak
+
+    B, Kst, nz = args[0].shape[:3]
+    nc, iters = args[1].shape[2], kw["iters"]
+    if ak._lane_invariant(*args[:3]):
+        raise AssertionError(f"{name}: Hd/J/K reached the kernel as one shared copy")
+    out_k = ak.boxqp_solve(*args, **kw)
+    torch.cuda.synchronize()
+    launch = dict(ak.LAUNCH_INFO["boxqp_solve"])
+    if launch.get("route") != "smem" or launch.get("shared_hjk"):
+        raise AssertionError(f"{name}: expected the shared-memory route, per-lane Hd/J/K, took {launch}")
+    t0 = time.perf_counter()
+    out_p = ak.boxqp_solve_plain(*args, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    out_d = ak.boxqp_solve_plain(*as_f64(args), **kw)
+    errs = {}
+    for i, nm in ((0, "x"), (2, "y_d"), (3, "y_b")):
+        errs[nm] = assert_as_close_as_plain(
+            f"boxqp_solve {name} B={B} {nm}", out_k[i], out_p[i], out_d[i], floor=1e-4)
+    d_rounds = (out_k[6] - out_p[6]).abs() / iters
+    if not bool((d_rounds <= 1).all()):
+        raise AssertionError(
+            f"boxqp_solve {name}: per-lane rounds differ from the plain version by up "
+            f"to {float(d_rounds.max())}")
+    # the one-thread-per-lane kernels on the same QPs, and B = 1, 8 through
+    # both routes: the first lanes' bits
+    out_t = ak.boxqp_solve(*args, **kw, route="thread")
+    torch.cuda.synchronize()
+    e_t, _ = assert_as_close_as_plain(
+        f"boxqp_solve {name} thread route x", out_t[0], out_p[0], out_d[0], floor=1e-4)
+    for route, full in (("smem", out_k), ("thread", out_t)):
+        for n in (1, 8):
+            out_n = ak.boxqp_solve(*[a[:n] for a in args], **kw, route=route)
+            torch.cuda.synchronize()
+            if not all_equal(out_n, [o[:n] for o in full]):
+                raise AssertionError(
+                    f"boxqp_solve {name} route {route}: B={n} disagrees with the first lanes")
+    call = lambda: ak.boxqp_solve(*args, **kw)
+    ms = min(time_ms(call, reps), time_ms(call, reps))
+    alone = kernels_alone_ms({name: (call, "boxqp_solve_smem_kernel")}, reps)[name]
+    rounds = float((out_k[6] / iters).sum())  # rounds this run's data needed
+    t_ops = rounds * ak.solve_flops_per_round(Kst, nz, nc, iters, False) / PEAK_FP32_PER_S * 1e3
+    t_bytes = ak.io_bytes(Kst, nz, nc, B, True, shared_hjk=False) / PEAK_BYTES_PER_S * 1e3
+    return dict(
+        Kst=Kst, nz=nz, nc=nc, batch=B, per_lane_hjk=True, n_rounds=kw["n_rounds"],
+        iters=iters, ms=ms, alone_ms=alone, plain_ms=plain_ms,
+        bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        bound_bytes_ms=t_bytes, bound_ops_ms=t_ops,
+        max_abs_err=float((out_k[0] - out_p[0]).abs().max()),
+        err_vs_f64={k: v[0] for k, v in errs.items()},
+        plain_err_vs_f64={k: v[1] for k, v in errs.items()},
+        thread_route_err_vs_f64=e_t,
+        same_it_frac=float((d_rounds == 0).float().mean()),
+        mean_rounds=rounds / B, launch=launch,
+    )
+
+
 def phase_nonlinear_kernels(problems, reps: int):
     """K1 against its plain version at the shapes of the nonlinear paths: the
     QPs of config 2's and config 3's first outer SQP iteration at B=4096
     (Kst=21, nc=2 and 3, Hd/J/K per lane), production exits (two rounds, no
-    KKT exit). Gates: as close to the float64 plain version as the float32
-    plain version (slack 2x + 1e-4), per-lane rounds within one of the plain
-    version, B=1 and B=8 give the first lanes' bits through both routes.
-    Returns name -> the record of these shapes."""
-    from control_box_rst_tpu_torch.ops.cuda import admm_kernel as ak
-
+    KKT exit), held as ``per_lane_k1_record`` holds them. Returns name -> the
+    record of these shapes."""
     out = {}
     for name, (ocp, cfg, dt0, x0s_np) in problems.items():
         args, kw = first_iteration_qps(ocp, cfg, dt0, torch.as_tensor(x0s_np, device="cuda"))
-        B, Kst, nz = args[0].shape[:3]
-        nc, iters = args[1].shape[2], kw["iters"]
-        if ak._lane_invariant(*args[:3]):
-            raise AssertionError(f"{name}: Hd/J/K reached the kernel as one shared copy")
-        out_k = ak.boxqp_solve(*args, **kw)
-        torch.cuda.synchronize()
-        launch = dict(ak.LAUNCH_INFO["boxqp_solve"])
-        if launch.get("route") != "smem" or launch.get("shared_hjk"):
-            raise AssertionError(f"{name}: expected the shared-memory route, per-lane Hd/J/K, took {launch}")
-        t0 = time.perf_counter()
-        out_p = ak.boxqp_solve_plain(*args, **kw)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        out_d = ak.boxqp_solve_plain(*as_f64(args), **kw)
-        errs = {}
-        for i, nm in ((0, "x"), (2, "y_d"), (3, "y_b")):
-            errs[nm] = assert_as_close_as_plain(
-                f"boxqp_solve {name} B={B} {nm}", out_k[i], out_p[i], out_d[i], floor=1e-4)
-        d_rounds = (out_k[6] - out_p[6]).abs() / iters
-        if not bool((d_rounds <= 1).all()):
-            raise AssertionError(
-                f"boxqp_solve {name}: per-lane rounds differ from the plain version by up "
-                f"to {float(d_rounds.max())}")
-        # the one-thread-per-lane kernels on the same QPs, and B = 1, 8 through
-        # both routes: the first lanes' bits
-        out_t = ak.boxqp_solve(*args, **kw, route="thread")
-        torch.cuda.synchronize()
-        e_t, _ = assert_as_close_as_plain(
-            f"boxqp_solve {name} thread route x", out_t[0], out_p[0], out_d[0], floor=1e-4)
-        for route, full in (("smem", out_k), ("thread", out_t)):
-            for n in (1, 8):
-                out_n = ak.boxqp_solve(*[a[:n] for a in args], **kw, route=route)
-                torch.cuda.synchronize()
-                if not all_equal(out_n, [o[:n] for o in full]):
-                    raise AssertionError(
-                        f"boxqp_solve {name} route {route}: B={n} disagrees with the first lanes")
-        call = lambda: ak.boxqp_solve(*args, **kw)
-        ms = min(time_ms(call, reps), time_ms(call, reps))
-        alone = kernels_alone_ms({name: (call, "boxqp_solve_smem_kernel")}, reps)[name]
-        rounds = float((out_k[6] / iters).sum())  # rounds this run's data needed
-        t_ops = rounds * ak.solve_flops_per_round(Kst, nz, nc, iters, False) / PEAK_FP32_PER_S * 1e3
-        t_bytes = ak.io_bytes(Kst, nz, nc, B, True, shared_hjk=False) / PEAK_BYTES_PER_S * 1e3
-        out[name] = dict(
-            Kst=Kst, nz=nz, nc=nc, batch=B, per_lane_hjk=True, n_rounds=kw["n_rounds"],
-            iters=iters, ms=ms, alone_ms=alone, plain_ms=plain_ms,
-            bound_ms=max(t_ops, t_bytes),
-            bound_by="operations" if t_ops >= t_bytes else "bytes",
-            bound_bytes_ms=t_bytes, bound_ops_ms=t_ops,
-            max_abs_err=float((out_k[0] - out_p[0]).abs().max()),
-            err_vs_f64={k: v[0] for k, v in errs.items()},
-            plain_err_vs_f64={k: v[1] for k, v in errs.items()},
-            thread_route_err_vs_f64=e_t,
-            same_it_frac=float((d_rounds == 0).float().mean()),
-            mean_rounds=rounds / B, launch=launch,
-        )
-        del args, out_k, out_p, out_d, out_t
+        out[name] = per_lane_k1_record(name, args, kw, reps)
+        del args
     log("kernels[nonlinear shapes]: " + json.dumps(out))
     return out
 
@@ -1083,6 +1125,296 @@ def phase_nonlinear(problems, trials: int, n_single: int):
         recs[name] = rec
         launches[name] = n_launch
     return launches, recs, solvers
+
+
+def nonuniform_x0s():
+    """Config 4's initial states x0 = [d, 0], d ~ U(0.5, 2) from
+    ``default_rng(4)``, float32 [NU_BATCH, 2]."""
+    d = np.random.default_rng(4).uniform(0.5, 2.0, (NU_BATCH,)).astype(np.float32)
+    return np.stack([d, np.zeros_like(d)], axis=1)
+
+
+def nonuniform_open_loop_solver(ocp, cfg):
+    """Config 4's batched open-loop solve: ``sqp_solve`` on a batch of
+    initial states from the straight line with dt = 0.1 (the golden test's
+    guess), the QP backend resolved for float32 on the card. Returns fn
+    x0s [B, 2] -> SQPResult (the plan's dts with it: T is their sum)."""
+    from control_box_rst_tpu_torch.ocp.problem import Trajectory
+    from control_box_rst_tpu_torch.solvers.sqp import resolve_qp_backend, sqp_solve
+
+    cfg = resolve_qp_backend(cfg, ocp.ng, "cuda", torch.float32)
+
+    def solve(x0s):
+        o = ocp.replace(bc=ocp.bc.replace(x0=x0s))
+        return sqp_solve(o, Trajectory.linear_interp(x0s, ocp.bc.xf, ocp.N, ocp.nu, 0.1), cfg)
+
+    return solve
+
+
+def phase_nonuniform_open_loop(x0s_np, trials: int, n_single: int):
+    """Config 4 open loop (``entry.nonuniform_ms_timeopt``, N=10, Kst=11) at
+    B=4096 through K1 with Hd/J/K per lane. Gates: converged fraction >=
+    0.99; max |T - 2 sqrt(d)| <= 1e-3 over every lane (T = the sum of the
+    dt_k); K1 launched once per lock-step SQP iteration (launches == the
+    largest iteration count > 0). Returns (launches, record, solver)."""
+    from control_box_rst_tpu_torch.entry import nonuniform_ms_timeopt
+    from control_box_rst_tpu_torch.ops.cuda import admm_kernel as ak
+
+    ocp, cfg = nonuniform_ms_timeopt()  # device=None: the card
+    solve = nonuniform_open_loop_solver(ocp, cfg)
+    B = x0s_np.shape[0]
+    x0s = torch.as_tensor(x0s_np, device="cuda")
+    solve(x0s[:256])  # warm-up
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    ak.reset_launch_counts()
+    res = solve(x0s)
+    torch.cuda.synchronize()
+    n_launch = ak.LAUNCHES["boxqp_solve"]
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    route = dict(ak.LAUNCH_INFO["boxqp_solve"])
+    dts = res.traj.dts
+    if dts.shape != (B, ocp.N) or not bool(torch.isfinite(res.W).all()):
+        raise AssertionError(f"config 4: dts have shape {tuple(dts.shape)} or W is not finite")
+    lock_step = int(res.iterations.max())
+    log(f"config 4: boxqp_solve launched {n_launch} time(s) in {lock_step} lock-step SQP "
+        f"iterations, last launch {route}")
+    if n_launch <= 0 or n_launch != lock_step:
+        raise AssertionError(
+            f"config 4: {n_launch} boxqp_solve launches for {lock_step} lock-step SQP iterations")
+    if route.get("route") != "smem" or route.get("shared_hjk"):
+        raise AssertionError(f"config 4: boxqp_solve took {route}, not per-lane shared memory")
+    conv = float((res.status == 1).float().mean())
+    T = dts.double().sum(dim=1).cpu().numpy()
+    t_err = float(np.max(np.abs(T - 2.0 * np.sqrt(x0s_np[:, 0].astype(np.float64)))))
+    if conv < CONV_GATE:
+        raise AssertionError(f"config 4: converged_frac {conv:.4f} < {CONV_GATE}")
+    if not (t_err <= ERR_GATE):
+        raise AssertionError(f"config 4: max |T - 2 sqrt(d)| {t_err:.3e} > {ERR_GATE}")
+
+    best = float("inf")
+    for _ in range(trials):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solve(x0s)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    solve(x0s[:1])
+    lats = []
+    for _ in range(n_single):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solve(x0s[:1])
+        torch.cuda.synchronize()
+        lats.append(time.perf_counter() - t0)
+    rec = dict(
+        batch=B, solves_per_s=B / best, batch_solve_ms=best * 1e3, converged_frac=conv,
+        max_tstar_err_vs_analytic=t_err, mean_sqp_iters=float(res.iterations.float().mean()),
+        max_sqp_iters=lock_step, boxqp_solve_launches=n_launch, kernel_route=route,
+        peak_device_memory_gib=peak_gb,
+        p50_single_solve_ms=float(np.percentile(np.asarray(lats), 50) * 1e3),
+        p99_single_solve_ms=float(np.percentile(np.asarray(lats), 99) * 1e3),
+        single_solves=n_single,
+    )
+    return n_launch, rec, solve
+
+
+def catch_steps_and_boxqp_calls(ak, steps: int, keep_step: int):
+    """Patch the controller's step and K1's wrapper to count, per MPC step,
+    the K1 calls, those with Hd/J/K per lane and their horizons, and keep
+    the arguments of the first call of step ``keep_step``. Returns (record,
+    restore)."""
+    from control_box_rst_tpu_torch.control import PredictiveController
+
+    rec = dict(step=-1, by_step=[0] * steps, per_lane_hjk_calls=0, kst=set(), kept=None)
+    real_step, real_k1 = PredictiveController.step, ak.boxqp_solve
+
+    def step(self, *args, **kw):
+        rec["step"] += 1
+        return real_step(self, *args, **kw)
+
+    def k1(*args, **kw):
+        k = rec["step"]
+        rec["by_step"][k] += 1
+        rec["per_lane_hjk_calls"] += int(not ak._lane_invariant(*args[:3]))
+        rec["kst"].add(int(args[0].shape[1]))
+        if k == keep_step and rec["kept"] is None:
+            rec["kept"] = (list(args), dict(kw))
+        return real_k1(*args, **kw)
+
+    PredictiveController.step, ak.boxqp_solve = step, k1
+
+    def restore():
+        PredictiveController.step, ak.boxqp_solve = real_step, real_k1
+
+    return rec, restore
+
+
+def phase_nonuniform_closed_loop(x0s_np, trials: int):
+    """Config 4 under MPC with the RedundantControls adaptation
+    (``entry.nonuniform_ms_timeopt_adaptive``: N=15, Kst=16, n_active_init=10,
+    no shift) through ``make_batched_closed_loop``: B=4096 rollouts of 25
+    steps of 0.1, lane 0 from [1.5, 0] (the golden's), every lane its own
+    active horizon, every SQP iteration through K1 with Hd/J/K per lane.
+    Gates: K1 launched at every step, once per lock-step SQP iteration, with
+    Hd/J/K per lane and Kst=16 on every call; lane 0 meets the golden test's
+    contract (n_active[0] >= 8, n_active[10:] <= 5, u[:6] < -0.99, |x_24,pos| <
+    2e-2); the usable-step fraction of the first 64 rollouts is no lower than
+    the JAX package's own float32 run of them. Returns (launches, record, the
+    QPs of step NU_CHECK_STEP, what ``phase_nonuniform_vs_plain`` takes)."""
+    from control_box_rst_tpu_torch.entry import nonuniform_ms_timeopt_adaptive
+    from control_box_rst_tpu_torch.ops.cuda import admm_kernel as ak
+    from control_box_rst_tpu_torch.parallel import make_batched_closed_loop
+
+    ctrl, plant, T, dt = nonuniform_ms_timeopt_adaptive()  # device=None: the card
+    N = ctrl.ocp.N
+    x0s_np = x0s_np.copy()
+    x0s_np[0] = [1.5, 0.0]
+    B = x0s_np.shape[0]
+    x0s = torch.as_tensor(x0s_np, device="cuda")
+    if ctrl.sqp_cfg.qp.backend != "fused" or ctrl.hoisted != (None, None, None):
+        raise AssertionError("config 4 closed loop: expected the fused backend and nothing hoisted")
+    roll = make_batched_closed_loop(ctrl, plant, T, dt)
+
+    torch.cuda.reset_peak_memory_stats()
+    calls, restore = catch_steps_and_boxqp_calls(ak, T, NU_CHECK_STEP)
+    ak.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        res = roll(x0s)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        n_launch = ak.LAUNCHES["boxqp_solve"]
+    finally:
+        restore()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    route = dict(ak.LAUNCH_INFO["boxqp_solve"])
+    u, ok, n_act = res.u, res.ok, res.info["n_active"]
+    if u.shape != (B, T, 1) or not bool(torch.isfinite(u).all()):
+        raise AssertionError(f"config 4 closed loop: u has shape {tuple(u.shape)} or non-finite values")
+    if n_act.shape != (B, T) or not bool(((n_act >= 2) & (n_act <= N)).all()):
+        raise AssertionError("config 4 closed loop: n_active out of [n_min, N]")
+    lock_step = res.info["sqp_iters"].amax(dim=0).tolist()  # [T]
+    log(f"config 4 closed loop: boxqp_solve launched {n_launch} time(s), by step "
+        f"{calls['by_step']}, lock-step SQP iterations {lock_step}, last launch {route}")
+    if n_launch != sum(calls["by_step"]) or calls["by_step"] != lock_step \
+            or min(calls["by_step"]) <= 0:
+        raise AssertionError(
+            f"config 4 closed loop: boxqp_solve launches by step {calls['by_step']}, "
+            f"lock-step SQP iterations {lock_step}")
+    if calls["per_lane_hjk_calls"] != n_launch or calls["kst"] != {N + 1} \
+            or route.get("route") != "smem" or route.get("shared_hjk"):
+        raise AssertionError(
+            f"config 4 closed loop: {calls['per_lane_hjk_calls']} of {n_launch} calls with "
+            f"per-lane Hd/J/K, horizons {calls['kst']}, last {route}")
+    n0, u0, x0_24 = n_act[0].tolist(), u[0, :, 0].tolist(), float(res.x_true[0, 24, 0])
+    contract = dict(n_active_0=n0[0] >= 8, n_active_10_on=max(n0[10:]) <= 5,
+                    bang_braking=max(u0[:6]) < -0.99, arrival=abs(x0_24) < 2e-2)
+    log(f"config 4 closed loop lane 0: n_active {n0}, u[:6] {u0[:6]}, x_24,pos {x0_24:.4e}")
+    if not all(contract.values()):
+        raise AssertionError(f"config 4 closed loop: lane 0 misses the golden contract {contract}")
+    usable = float(ok.float().mean())
+    usable_ref_lanes = float(ok[:NU_REF_LANES].float().mean())
+    if usable_ref_lanes < NU_REF_USABLE:
+        raise AssertionError(
+            f"config 4 closed loop: usable-step fraction of the first {NU_REF_LANES} rollouts "
+            f"{usable_ref_lanes:.4f} < the reference's float32 {NU_REF_USABLE}")
+    # step NU_CHECK_STEP's QPs: lanes of different horizons in one launch,
+    # and an inactive interval reached the kernel as an identity chain
+    args = calls["kept"][0]
+    n_k = n_act[:, NU_CHECK_STEP].to(torch.int64)
+    J_first_inactive = torch.take_along_dim(
+        args[1], n_k.clamp(max=N - 1)[:, None, None, None], dim=1)[:, 0, :, :2]
+    chain = (J_first_inactive == -torch.eye(2, device="cuda")).all(dim=(1, 2)) | (n_k == N)
+    if len(set(n_k.tolist())) < 2 or not bool(chain.all()):
+        raise AssertionError(
+            f"config 4 closed loop: step {NU_CHECK_STEP} horizons {sorted(set(n_k.tolist()))}, "
+            f"identity-chain rows on {int(chain.sum())} of {B} lanes")
+
+    best = first_s
+    for _ in range(trials):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        roll(x0s)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+
+    # one controller step at B = 1, over the T steps of lane 0's rollout
+    def single_rollout():
+        x = x0s[:1]
+        carry = ctrl.init_carry(x)
+        lats = []
+        for k in range(T):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            carry, out = ctrl.step(carry, x, k * dt, dt)
+            torch.cuda.synchronize()
+            lats.append(time.perf_counter() - t0)
+            x = plant.step(x, torch.where(out.ok[:, None], out.u, torch.zeros_like(out.u)), dt)
+        return np.asarray(lats)
+
+    lats = single_rollout()
+
+    hist = [torch.bincount(n_act[:, k].to(torch.int64), minlength=N + 1).tolist() for k in range(T)]
+    rec = dict(
+        batch=B, t_steps=T, dt=dt, n_grid=N, rollouts_per_s=B / best, mpc_steps_per_s=B * T / best,
+        rollout_batch_ms=best * 1e3, first_rollout_batch_ms=first_s * 1e3,
+        usable_step_frac=usable, usable_step_frac_first_lanes=usable_ref_lanes,
+        reference_usable_step_frac_first_lanes=NU_REF_USABLE, reference_lanes=NU_REF_LANES,
+        boxqp_solve_launches=n_launch, boxqp_solve_launches_by_step=calls["by_step"],
+        mean_sqp_iters_per_lane_step=float(res.info["sqp_iters"].float().mean()),
+        n_active_hist_by_step=hist, lane0=dict(n_active=n0, u_first6=u0[:6], x24_pos=x0_24),
+        mean_abs_final_pos=float(res.x_true[:, -1, 0].abs().mean()),
+        kernel_route=route, peak_device_memory_gib=peak_gb,
+        p50_single_step_ms=float(np.percentile(lats, 50) * 1e3),
+        p99_single_step_ms=float(np.percentile(lats, 99) * 1e3), single_steps=T,
+    )
+    return n_launch, rec, calls["kept"], (ctrl, plant, x0s, u, n_act)
+
+
+def phase_nonuniform_vs_plain(ctrl, plant, x0s, u, n_act):
+    """The batch of ``phase_nonuniform_closed_loop`` through ``backend='plain'``
+    for its first NU_PLAIN_STEPS steps (no kernel: ~1 s of eager launches per
+    SQP iteration, 612 s for all 25 steps on an H100, so the depth is cut and
+    it runs last): the share of lane-steps on which both backends chose the
+    same active horizon, and max |u_fused - u_plain| on those, reported."""
+    from control_box_rst_tpu_torch.ops.cuda import admm_kernel as ak
+    from control_box_rst_tpu_torch.parallel import make_batched_closed_loop
+
+    T = NU_PLAIN_STEPS
+    u, n_act = u[:, :T], n_act[:, :T]
+    plain_ctrl = ctrl.replace(cfg=ctrl.cfg.replace(qp=ctrl.cfg.qp.replace(backend="plain")))
+    ak.reset_launch_counts()
+    t0 = time.perf_counter()
+    res_p = make_batched_closed_loop(plain_ctrl, plant, T, 0.1)(x0s)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    if ak.LAUNCHES["boxqp_solve"]:
+        raise AssertionError("config 4 closed loop: the plain backend launched the box-QP kernel")
+    same_n = n_act == res_p.info["n_active"]
+    u_dev = float(torch.where(same_n[..., None], (u - res_p.u).abs(), torch.zeros_like(u)).max())
+    log(f"config 4 closed loop: n_active equal to the plain backend's on "
+        f"{float(same_n.float().mean()):.4f} of lane-steps, max |u_fused - u_plain| there {u_dev:.3e}")
+    return dict(t_steps=T, rollout_batch_s=plain_s,
+                usable_step_frac=float(res_p.ok.float().mean()),
+                same_n_active_frac=float(same_n.float().mean()),
+                max_u_dev_on_same_n_active=u_dev)
+
+
+def phase_nonuniform_kernels(ocp_cfg, x0s_np, kept, reps: int):
+    """K1 against its plain version (``per_lane_k1_record``) on config 4's
+    first-iteration QPs (Kst=11, B=4096) and on the QPs of one adaptive
+    closed-loop step (Kst=16, lanes of mixed horizons). Returns name -> the
+    record of these shapes."""
+    ocp, cfg = ocp_cfg
+    args, kw = first_iteration_qps(ocp, cfg, 0.1, torch.as_tensor(x0s_np, device="cuda"))
+    out = {"nonuniform_ms_timeopt": per_lane_k1_record("nonuniform_ms_timeopt", args, kw, reps)}
+    del args
+    out["nonuniform_adaptive_step"] = dict(
+        per_lane_k1_record("nonuniform_adaptive_step", *kept, reps), step=NU_CHECK_STEP)
+    log("kernels[config 4 shapes]: " + json.dumps(out))
+    return out
 
 
 def phase_main(ocp, cfg, x0s_np, trials: int, reps: int):
@@ -1626,10 +1958,19 @@ def main() -> int:
     log(f"device: {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
-    from control_box_rst_tpu_torch.entry import flagship, flagship_lm
+    from control_box_rst_tpu_torch.entry import flagship, flagship_lm, nonuniform_ms_timeopt
     from control_box_rst_tpu_torch.ops.cuda import admm_kernel as ak
     from control_box_rst_tpu_torch.ops.cuda import btridiag_kernel as bk
     from control_box_rst_tpu_torch.ops.cuda import build
+
+    # wall seconds of each phase since the previous stamp
+    phase_s, last = {}, [time.perf_counter()]
+
+    def stamp(name):
+        now = time.perf_counter()
+        phase_s[name] = now - last[0]
+        last[0] = now
+        log(f"phase {name}: {phase_s[name]:.1f} s")
 
     # ---- 2 build ----
     ocp, cfg = flagship(N=50)
@@ -1640,6 +1981,7 @@ def main() -> int:
     libs = build.build_all(
         [ak.build_spec(nz, nc) for nz, nc in shapes] + [bk.build_spec(ocp.nz)], verbose=True)
     log(f"build: {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.1f} s")
+    stamp("build")
 
     rng = np.random.default_rng(0)
     x0s_np = rng.uniform(-1.0, 1.0, size=(BATCH, 2)).astype(np.float32)
@@ -1650,19 +1992,35 @@ def main() -> int:
     records = phase_kernels(ocp_dev, cfg, x0s_dev, SMALL_BATCH, KERNEL_REPS)
     records[0]["shapes"] = phase_nonlinear_kernels(problems, KERNEL_REPS)
     records += phase_btridiag_kernels(ocp_dev, lm_cfg, x0s_dev, KERNEL_REPS)
+    stamp("kernels")
     if opts.skip_main:
         log(json.dumps({"kernels": records}))
         return 3
 
     # ---- 4 main path (SQP), 5 LM path, 6 nonlinear paths ----
     launches, main_rec = phase_main(ocp, cfg, x0s_np, TRIALS, REPS)
+    stamp("main")
     lm_launches, lm_rec = phase_lm(ocp, lm_cfg, x0s_np, LM_TRIALS)
+    stamp("lm")
     nl_launches, nl_rec, nl_solvers = phase_nonlinear(problems, NL_TRIALS, NL_SINGLE)
+    stamp("nonlinear")
     cl_k1, cl_k4, cl_rec, cl_step_rec, cl_roll = phase_closed_loop(
         x0s_np[:CL_BATCH], CL_TRIALS, KERNEL_REPS)
     records[0]["shapes"]["closed_loop"] = cl_step_rec
+    stamp("closed_loop")
+    # ---- config 4: open loop, adaptive closed loop, K1 at their shapes ----
+    nu_x0s = nonuniform_x0s()
+    nu_ol_k1, nu_ol_rec, nu_solve = phase_nonuniform_open_loop(nu_x0s, NU_TRIALS, NU_SINGLE)
+    stamp("nonuniform_open_loop")
+    nu_cl_k1, nu_cl_rec, nu_kept, nu_cl = phase_nonuniform_closed_loop(nu_x0s, NU_CL_TRIALS)
+    stamp("nonuniform_closed_loop")
+    records[0]["shapes"].update(
+        phase_nonuniform_kernels(nonuniform_ms_timeopt(), nu_x0s, nu_kept, KERNEL_REPS))
+    del nu_kept
+    stamp("nonuniform_kernels")
     # each count from its own path's run; K1 and K4 carry one count per path
-    k1_paths = {"sqp_config1": launches["boxqp_solve"], **nl_launches, "closed_loop": cl_k1}
+    k1_paths = {"sqp_config1": launches["boxqp_solve"], **nl_launches, "closed_loop": cl_k1,
+                "nonuniform_open_loop": nu_ol_k1, "nonuniform_closed_loop": nu_cl_k1}
     k4_paths = {"lm_config1": lm_launches["btridiag_factor_solve_inplace"], "closed_loop_lm": cl_k4}
     launches = {**launches, **lm_launches, "boxqp_solve": sum(k1_paths.values()),
                 "btridiag_factor_solve_inplace": sum(k4_paths.values())}
@@ -1710,12 +2068,32 @@ def main() -> int:
         prof["eager_kernels_per_mpc_step"] = (
             prof["n_device_kernels"] - k1[0]["launches"]) / cl_rec["t_steps"]
         log(json.dumps({"profile_closed_loop": prof}))
+        from control_box_rst_tpu_torch.parallel import make_batched_closed_loop
+
+        nu_prof = phase_profile(
+            {"open_loop": (nu_solve, NU_BATCH),
+             "closed_loop_5_steps": (make_batched_closed_loop(*nu_cl[:2], 5, 0.1), NU_BATCH)},
+            nu_x0s)
+        for name, prof in nu_prof.items():
+            k1 = [v for k, v in prof["own_kernels"].items() if "boxqp_solve" in k]
+            if len(k1) != 1:
+                raise AssertionError(f"config 4 {name}: the profiler saw {list(prof['own_kernels'])}")
+            prof["sqp_iterations"] = k1[0]["launches"]
+            prof["eager_kernels_per_sqp_iteration"] = (
+                prof["n_device_kernels"] - k1[0]["launches"]) / k1[0]["launches"]
+        log(json.dumps({"profile_nonuniform": nu_prof}))
+        stamp("profile")
 
     # ---- 7 result ----
     log(json.dumps({"main": main_rec}))
     log(json.dumps({"lm": lm_rec}))
     log(json.dumps({"nonlinear": nl_rec}))
     log(json.dumps({"closed_loop": cl_rec}))
+    # last: the config-4 batch by the plain backend (see its docstring)
+    nu_cl_rec["plain"] = phase_nonuniform_vs_plain(*nu_cl)
+    stamp("nonuniform_vs_plain")
+    log(json.dumps({"phase_seconds": phase_s}))
+    log(json.dumps({"nonuniform": {"open_loop": nu_ol_rec, "closed_loop": nu_cl_rec}}))
     log(smi)
     log(json.dumps({"kernels": records}))
     log(json.dumps({

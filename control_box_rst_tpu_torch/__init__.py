@@ -22,9 +22,12 @@ grid) (``parallel.make_batched_solver`` → ``solvers.sqp_solve`` →
 of ``ops/cuda/admm_kernel.py``), the config-1 solve by Levenberg-Marquardt
 (``parallel.make_batched_lm_solver`` → ``solvers.lm_solve`` → the
 block-tridiagonal factor-and-solve kernels of ``ops/cuda/btridiag_kernel.py``),
-and the closed loop of config 5 (``parallel.make_batched_closed_loop`` →
+the closed loop of config 5 (``parallel.make_batched_closed_loop`` →
 ``sim.run_closed_loop`` → ``control.PredictiveController``, warm-started SQP
-or LM at every MPC step, against ``sim.SimulatedPlant``).
+or LM at every MPC step, against ``sim.SimulatedPlant``), and config 4: the
+non-uniform time-optimal grid with a free dt per interval, open loop and
+under MPC with grid adaptation (``ocp.adaptation``), every lane its own
+active horizon through a per-lane stage mask.
 """
 
 __version__ = "0.1.0"

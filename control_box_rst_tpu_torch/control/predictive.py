@@ -21,6 +21,12 @@ interval Jacobians J, K and the Hessian blocks Hd do not depend on the
 iterate, so they are evaluated once, at construction, from the unbatched
 initial guess, and every SQP solve gets them (``hoisted=``): the fused box-QP
 kernel then reads one shared copy for the whole batch.
+
+With a grid adaptation (``ocp/adaptation.py``) every lane carries its own
+active horizon ``n_active``: each step first adapts each lane's warm start
+and horizon, then solves with the per-lane stage mask of those horizons.
+The structure then changes with the mask at every step and differs from lane
+to lane, so nothing is hoisted: every SQP iteration linearizes every lane.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from control_box_rst_tpu_torch.control.base import Controller, ControlOutput
+from control_box_rst_tpu_torch.ocp.adaptation import stage_mask_from_n
 from control_box_rst_tpu_torch.ocp.problem import Trajectory
 from control_box_rst_tpu_torch.ocp.transcribe import TranscribedOCP
 from control_box_rst_tpu_torch.solvers.lm import LMConfig, lm_solve
@@ -38,6 +45,7 @@ from control_box_rst_tpu_torch.solvers.sqp import (
     SQPHoisted,
     SQPWarmStart,
     hoist_structure,
+    resolve_qp_backend,
     sqp_solve,
 )
 from control_box_rst_tpu_torch.utils.precision import resolve_device, resolve_dtype
@@ -140,10 +148,12 @@ class PredictiveController(Controller):
 
     ``solver``: 'sqp' (warm-started primal and duals; ``num_ocp_iterations``
     solves per step) or 'lm' (Levenberg-Marquardt on the primal warm start;
-    the carry's duals pass through unchanged). 'ip' is not ported yet, nor
-    is grid adaptation (``adaptation``) with what comes with it in the
-    reference (a shorter initial active horizon, steps without the shift):
-    every lane's horizon is the full grid.
+    the carry's duals pass through unchanged). 'ip' is not ported yet.
+    ``adaptation``: a ``GridAdaptation`` applied at the start of every step
+    from the previous solve's constraint violation; ``n_active_init``: the
+    initial active horizon (0: the grid's N); ``warm_start_shift=False``
+    keeps the previous solution in place instead of shifting it by the
+    state-proximity count.
     ``cfg.qp.backend=None`` resolves to 'fused' for a float32 solve without
     general rows on the card, else to 'plain'. A solve is usable (``ok``)
     when its constraint violation is below ``usable_feas_tol``; the duals of
@@ -160,6 +170,8 @@ class PredictiveController(Controller):
     solver: str = "sqp"
     lm_cfg: LMConfig = None
     num_ocp_iterations: int = 1
+    warm_start_shift: bool = True
+    n_active_init: int = 0
     adaptation: object = None
     usable_feas_tol: float = 1e-3
     device: object = None
@@ -176,10 +188,6 @@ class PredictiveController(Controller):
             raise NotImplementedError(
                 "PredictiveController(solver='ip') is not ported yet: the "
                 "interior-point solver comes with the other-solvers slice E")
-        if self.adaptation is not None:
-            raise NotImplementedError(
-                "grid adaptation in PredictiveController is not ported yet "
-                "(grid-adaptation slice D)")
         if self.num_ocp_iterations < 1:
             raise ValueError("num_ocp_iterations must be >= 1")
         device, dtype = resolve_device(self.device), resolve_dtype(self.dtype)
@@ -191,16 +199,16 @@ class PredictiveController(Controller):
             set_("lm_cfg", LMConfig())
         ocp = self.ocp.to(device=device, dtype=dtype)
         set_("ocp", ocp)
-        cfg = self.cfg
-        if cfg.qp.backend is None:
-            fused = device.type == "cuda" and dtype == torch.float32 and ocp.ng == 0
-            cfg = cfg.replace(qp=cfg.qp.replace(backend="fused" if fused else "plain"))
+        cfg = resolve_qp_backend(self.cfg, ocp.ng, device, dtype)
         set_("sqp_cfg", cfg)
         if self.solver == "sqp":
             # J, K, Hd of an LTI problem with a constant Hessian, once, from
             # the unbatched initial guess (SQPHoisted(None, None, None) when
-            # they depend on the iterate)
-            set_("hoisted", hoist_structure(ocp, self._initial_guess(ocp.bc.x0), cfg))
+            # they depend on the iterate, or on a lane's adapted horizon)
+            hoisted = SQPHoisted(None, None, None)
+            if self.adaptation is None:
+                hoisted = hoist_structure(ocp, self._initial_guess(ocp.bc.x0), cfg)
+            set_("hoisted", hoisted)
 
     @property
     def horizon(self) -> int:
@@ -235,7 +243,8 @@ class PredictiveController(Controller):
             y_gen=torch.zeros(lead + (N + 1, ng), **kw),
             y_box=torch.zeros(lead + (N + 1, nz), **kw),
             u_prev=torch.zeros(lead + (ocp.nu,), **kw),
-            n_active=torch.full(lead, N, dtype=torch.int32, device=self.device),
+            n_active=torch.full(lead, self.n_active_init or N, dtype=torch.int32,
+                                device=self.device),
             feas_prev=torch.zeros(lead, **kw),
         )
 
@@ -245,14 +254,25 @@ class PredictiveController(Controller):
         nx, N = ocp.nx, ocp.N
         W, y_dyn, y_gen, y_box = carry.W, carry.y_dyn, carry.y_gen, carry.y_box
         n_active = carry.n_active
-        # moving-horizon shift at the START of the step with the measured
-        # state (the reference's call order): the count is however many
-        # planned states the plant passed, lane by lane
-        k = find_nearest_state(W, x, nx, n_active=n_active)
-        W = shift_warm_start(W, nx, k, n_active=n_active)
-        y_dyn = shift_stage_rows(y_dyn, k, N - 1)
-        y_gen = shift_stage_rows(y_gen, k, N)
-        y_box = shift_stage_rows(y_box, k, N)
+        if self.adaptation is not None:
+            # adapt every lane's grid before the solve, from the previous
+            # solve's constraint violation; the lane's horizon becomes its mask
+            W, n_active = self.adaptation.adapt(
+                W, n_active, nx, ocp.nu, N, feas=carry.feas_prev)
+            ocp = ocp.replace(
+                stage_mask=stage_mask_from_n(n_active, N, W.dtype, W.device))
+        if self.warm_start_shift:
+            # moving-horizon shift at the START of the step with the measured
+            # state (the reference's call order): the count is however many
+            # planned states the plant passed, lane by lane, inside its
+            # active horizon
+            k = find_nearest_state(W, x, nx, n_active=n_active)
+            W = shift_warm_start(W, nx, k, n_active=n_active)
+            y_dyn = shift_stage_rows(y_dyn, k, N - 1)
+            y_gen = shift_stage_rows(y_gen, k, N)
+            y_box = shift_stage_rows(y_box, k, N)
+        else:
+            W = W.clone()
         # overwrite the x0 row, keep the rest of the warm start
         W[..., 0, :nx] = x
         # restore pinned terminal components: the tail extrapolation writes

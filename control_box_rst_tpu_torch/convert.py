@@ -11,18 +11,20 @@ handed to the port — is a dict of numpy arrays and static fields (the form
            "van_der_pol" with a), grid_kind ("fd" | "ms"),
            fd_scheme ("crank_nicolson" | "forward"), integrator ("euler",
            "rk2" … "rk7"), integrator_substeps, cost_integration,
-           dt_mode ("fixed" | "single"), cost ("quadratic" | "minimum_time"),
+           dt_mode ("fixed" | "single" | "per_interval"),
+           cost ("quadratic" | "minimum_time"),
            cost_integral, lsq_form
   cost:    "quadratic": Q [nx,nx], R [nu,nu], Qf [nx,nx] (Qf optional);
            "minimum_time": weight
   bounds:  x_lb, x_ub [nx], u_lb, u_ub [nu], dt_lb, dt_ub scalars
   refs:    xref [N+1,nx], uref [N,nu]
   bc:      x0 [..., nx], xf [nx] or None, xf_fixed [nx] or None
-  mask:    stage_mask [N]
+  mask:    stage_mask [N], or [..., N] for one active horizon per lane
 
 ``mpc_carry_from_numpy`` takes the fields of an ``MPCCarry`` (W, y_dyn,
 y_gen, y_box, u_prev, n_active, feas_prev), so that both packages can be
-handed the same mid-rollout carry.
+handed the same mid-rollout carry. ``adaptation_from_numpy`` builds a grid
+adaptation from the class name of the reference's (``kind``) and its fields.
 
 Every function here takes ``dtype`` (``None`` means float32) and ``device``
 (``None`` means the card, and raises when there is none; the CPU has to be
@@ -32,10 +34,13 @@ from __future__ import annotations
 
 from typing import Any, Mapping, Optional
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from control_box_rst_tpu_torch.control.predictive import MPCCarry
+from control_box_rst_tpu_torch.ocp import adaptation as _adaptation
 from control_box_rst_tpu_torch.models.benchmark import (
     SerialIntegratorSystem,
     VanDerPolOscillator,
@@ -144,3 +149,26 @@ def mpc_carry_from_numpy(d: Mapping[str, Any], dtype=None,
     n_active = torch.as_tensor(
         np.array(d["n_active"]), device=resolve_device(device)).to(torch.int32)
     return MPCCarry(n_active=n_active, **floats)
+
+
+_ADAPTATIONS = {
+    cls.__name__: cls for cls in (
+        _adaptation.GridAdaptation, _adaptation.TimeBasedSingleStep,
+        _adaptation.TimeBasedAggressiveEstimate, _adaptation.SimpleShrinkingHorizon,
+        _adaptation.GrowOnInfeasibility, _adaptation.RedundantControls,
+    )
+}
+
+
+def adaptation_from_numpy(d: Mapping[str, Any]) -> _adaptation.GridAdaptation:
+    """A grid adaptation from ``kind`` (the class name, the same in both
+    packages) and any of its fields (``n_min``, ``n_max``, ``dt_ref``,
+    ``dt_hyst_ratio``, ``feas_tol``, ``epsilon``, ``backup``) as numbers or
+    0-d arrays; fields left out keep their defaults. Holds no tensor, so it
+    takes no device or dtype."""
+    kind = d["kind"]
+    if kind not in _ADAPTATIONS:
+        raise KeyError(f"unknown grid adaptation {kind!r}; have {sorted(_ADAPTATIONS)}")
+    cls = _ADAPTATIONS[kind]
+    return cls(**{f.name: type(f.default)(np.asarray(d[f.name]).item())
+                  for f in dataclasses.fields(cls) if f.name in d})

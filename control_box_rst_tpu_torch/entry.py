@@ -13,6 +13,12 @@ vdp_ms(N)    → (ocp, cfg): config 2 — Van der Pol, multiple shooting (RK4),
 time_optimal(N) → (ocp, cfg): config 3 — rest-to-rest double integrator,
                minimum time, one dt decision variable tied across the
                intervals; analytic optimum T* = 2√d from x0 = [d, 0].
+nonuniform_ms_timeopt(N) → (ocp, cfg): config 4 — rest-to-rest double
+               integrator, minimum time, non-uniform multiple shooting (RK4)
+               with a free dt per interval; optimum T* = 2√d from x0 = [d, 0].
+nonuniform_ms_timeopt_adaptive(N) → (controller, plant, T_steps, dt): config
+               4 under MPC with the RedundantControls grid adaptation, each
+               lane its own active horizon (the reference's golden case 9).
 rollouts(N)  → (controller, plant, T_steps, dt): config 5 — the config-1
                OCP under a PredictiveController against the simulated
                double integrator (RK4, 4 substeps, no noise), 20 steps of
@@ -144,6 +150,66 @@ def time_optimal(N: int = 20, dtype=None, device=None):
         tol_stat=3e-4, tol_feas=1e-5,
     )
     return ocp, cfg
+
+
+def nonuniform_ms_timeopt(N: int = 10, dtype=None, device=None):
+    """Config-4 OCP (``tests/test_golden_nonuniform.py:_config4_ocp``): the
+    double integrator on the non-uniform multiple-shooting grid (RK4, one
+    substep, a free dt per interval), ``MinimumTime(weight=N, lsq_form=True)``
+    — N·Σ dt_k², T*² at the optimum, where every dt_k = T*/N — |u| ≤ 1, dt in
+    [1e-3, 0.5], x0 = [1.5, 0] (a batch replaces it) to xf = 0 fully pinned,
+    with its float32 solver settings. Optimum T* = 2√d from x0 = [d, 0];
+    ``make_batched_solver(ocp, cfg, dt_init=0.1)`` starts from the golden
+    test's initial guess. ``dtype`` / ``device`` as in ``flagship``."""
+    from control_box_rst_tpu_torch.models import DoubleIntegratorContinuous
+    from control_box_rst_tpu_torch.ocp import (
+        Bounds,
+        MinimumTime,
+        non_uniform_multiple_shooting_variable_grid,
+        transcribe,
+    )
+    from control_box_rst_tpu_torch.solvers import QPConfig, SQPConfig
+
+    kw = dict(dtype=resolve_dtype(dtype), device=resolve_device(device))
+    grid = non_uniform_multiple_shooting_variable_grid(N, integrator="rk4", substeps=1)
+    bounds = Bounds.unbounded(2, 1, **kw).with_u(-1.0, 1.0).with_dt(1e-3, 0.5)
+    ocp = transcribe(
+        DoubleIntegratorContinuous(), grid, MinimumTime(weight=float(N), lsq_form=True),
+        bounds=bounds, x0=torch.tensor([1.5, 0.0], **kw), xf=torch.zeros(2, **kw),
+        xf_fixed=torch.tensor([1.0, 1.0], **kw), **kw,
+    )
+    # float32 settings, picked with the JAX package's own float32 solve
+    # (tools/config4_calibration.py): config 3's, which reach T* to 4e-7
+    cfg = SQPConfig(
+        max_iter=25,
+        qp=QPConfig(max_iter=80, iters_per_round=40, tol=1e-5),
+        tol_stat=3e-4, tol_feas=1e-5,
+    )
+    return ocp, cfg
+
+
+def nonuniform_ms_timeopt_adaptive(N: int = 15, dtype=None, device=None):
+    """Config 4 under MPC with grid adaptation, as the golden test of case 9
+    builds it (``tests/test_golden_nonuniform.py:180-190``): the config-4 OCP
+    on N = 15 intervals, ``RedundantControls(epsilon=1e-3, backup=1, n_min=2,
+    n_max=N)``, an initial active horizon of 10, no warm-start shift; the
+    simulated double integrator; 25 steps of 0.1. Returns (controller, plant,
+    T_steps, dt); only the SQP settings differ from the golden test's float64
+    ones (``nonuniform_ms_timeopt``'s float32 settings). ``dtype`` /
+    ``device`` as in ``flagship``; the controller runs there."""
+    from control_box_rst_tpu_torch.control import PredictiveController
+    from control_box_rst_tpu_torch.models import DoubleIntegratorContinuous
+    from control_box_rst_tpu_torch.ocp import RedundantControls
+    from control_box_rst_tpu_torch.sim import SimulatedPlant
+
+    ocp, cfg = nonuniform_ms_timeopt(N, dtype=dtype, device=device)
+    ctrl = PredictiveController(
+        nx=2, nu=1, ocp=ocp, dt=0.1, cfg=cfg, warm_start_shift=False,
+        adaptation=RedundantControls(epsilon=1e-3, backup=1, n_min=2, n_max=N),
+        n_active_init=10, device=device, dtype=dtype,
+    )
+    plant = SimulatedPlant(system=DoubleIntegratorContinuous())
+    return ctrl, plant, 25, 0.1
 
 
 def rollouts(N: int = 50, dtype=None, device=None):

@@ -11,6 +11,8 @@ from control_box_rst_tpu_torch.ocp.grids import (
     finite_differences_variable_grid,
     multiple_shooting_grid,
     multiple_shooting_variable_grid,
+    non_uniform_fd_variable_grid,
+    non_uniform_multiple_shooting_variable_grid,
 )
 from control_box_rst_tpu_torch.ocp.problem import (
     BoundaryConditions,
@@ -19,12 +21,26 @@ from control_box_rst_tpu_torch.ocp.problem import (
     Trajectory,
 )
 from control_box_rst_tpu_torch.ocp.transcribe import TranscribedOCP, transcribe
+from control_box_rst_tpu_torch.ocp.adaptation import (
+    GridAdaptation,
+    GrowOnInfeasibility,
+    RedundantControls,
+    SimpleShrinkingHorizon,
+    TimeBasedAggressiveEstimate,
+    TimeBasedSingleStep,
+    resample_W,
+    stage_mask_from_n,
+)
 
 __all__ = [
     "StageCost", "QuadraticFormCost", "QuadraticFinalStateCost", "CompositeCost",
     "MinimumTime",
     "Grid", "finite_differences_grid", "finite_differences_variable_grid",
     "multiple_shooting_grid", "multiple_shooting_variable_grid",
+    "non_uniform_fd_variable_grid", "non_uniform_multiple_shooting_variable_grid",
     "Trajectory", "Bounds", "References", "BoundaryConditions",
     "TranscribedOCP", "transcribe",
+    "GridAdaptation", "TimeBasedSingleStep", "TimeBasedAggressiveEstimate",
+    "SimpleShrinkingHorizon", "GrowOnInfeasibility", "RedundantControls",
+    "resample_W", "stage_mask_from_n",
 ]

@@ -8,10 +8,11 @@ share one canonical stage structure (see ``ocp/transcribe.py``):
   interval rows   c_k(w_k, w_{k+1}) = 0      (defect + tie rows)
 
 Ported: the ``Grid`` description; the uniform finite-differences grid with
-dt pinned or with one dt tied across the intervals (time-optimal); multiple
-shooting with dt pinned or tied. Per-interval dt, move blocking and
-Hermite-Simpson come with later slices, and the transcription refuses what it
-cannot yet evaluate.
+dt pinned or with one dt tied across the intervals (time-optimal); the
+non-uniform time-optimal grids with a free dt per interval; multiple shooting
+with dt pinned, tied or per interval. Move blocking and Hermite-Simpson come
+with a later slice, and the transcription refuses what it cannot yet
+evaluate.
 """
 from __future__ import annotations
 
@@ -61,6 +62,14 @@ def finite_differences_variable_grid(N: int, fd_scheme: str = "crank_nicolson",
                 cost_integration=cost_integration, dt_mode="single")
 
 
+def non_uniform_fd_variable_grid(N: int, fd_scheme: str = "crank_nicolson",
+                                 cost_integration: str = "left_sum") -> Grid:
+    """Non-uniform time-optimal grid: a free dt_k decision variable per
+    interval, no tie rows."""
+    return Grid(N=N, kind="fd", fd_scheme=fd_scheme,
+                cost_integration=cost_integration, dt_mode="per_interval")
+
+
 def multiple_shooting_grid(N: int, integrator: str = "rk4",
                            substeps: int = 1,
                            cost_integration: str = "left_sum") -> Grid:
@@ -77,3 +86,12 @@ def multiple_shooting_variable_grid(N: int, integrator: str = "rk4",
     return Grid(N=N, kind="ms", integrator=integrator,
                 integrator_substeps=substeps,
                 cost_integration=cost_integration, dt_mode="single")
+
+
+def non_uniform_multiple_shooting_variable_grid(
+        N: int, integrator: str = "rk4", substeps: int = 1,
+        cost_integration: str = "left_sum") -> Grid:
+    """Non-uniform time-optimal multiple shooting: a free dt_k per interval."""
+    return Grid(N=N, kind="ms", integrator=integrator,
+                integrator_substeps=substeps,
+                cost_integration=cost_integration, dt_mode="per_interval")

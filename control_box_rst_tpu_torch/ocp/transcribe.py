@@ -21,15 +21,19 @@ batch), and the cost gradient of all lanes comes from one
 ``torch.autograd.grad`` of the summed objective — lanes are independent, so
 the gradient of the sum is every lane's own gradient.
 
-Variable-horizon support: ``stage_mask[k] ∈ {0,1}`` deactivates tail
+Variable-horizon support: ``stage_mask[..., k] ∈ {0,1}`` deactivates tail
 intervals by replacing their defect with the identity chain x_{k+1} − x_k = 0
-and zeroing their cost, so only array values change, never shapes.
+and zeroing their cost, so only array values change, never shapes. The mask
+is [N] (every lane the same horizon) or [..., N], one horizon per lane (grid
+adaptation, ``ocp/adaptation.py``); a per-lane mask batches every evaluation
+over its lanes, whether W carries them or not.
 
-Ported so far: finite-difference and multiple-shooting grids, with dt pinned
-or with one dt tied across the intervals (tie rows dt_{k+1} − dt_k = 0 for
-k < N−1), left-sum / trapezoidal cost integration and no general rows
-(``ng = 0``). Per-interval dt, move blocking, the schemes and integrators and
-the constraint objects that later slices bring are refused at construction.
+Ported so far: finite-difference and multiple-shooting grids, with dt pinned,
+with one dt tied across the intervals (tie rows dt_{k+1} − dt_k = 0 for
+k < N−1), or with a free dt per interval (no tie rows, nc = nx), left-sum /
+trapezoidal cost integration and no general rows (``ng = 0``). Move blocking,
+the schemes and integrators and the constraint objects that later slices
+bring are refused at construction.
 """
 from __future__ import annotations
 
@@ -52,6 +56,7 @@ from control_box_rst_tpu_torch.utils.precision import resolve_device, resolve_dt
 from control_box_rst_tpu_torch.utils.tree import plain_dataclass, tree_to
 
 _COST_INTEGRATIONS = ("left_sum", "trapezoidal")
+_DT_MODES = ("fixed", "single", "per_interval")
 
 
 def _vmap_over_lead(fn, lead_ndim: int, n_batched: int, n_shared: int):
@@ -75,16 +80,17 @@ class TranscribedOCP:
     bounds: Bounds = None
     bc: BoundaryConditions = None
     refs: References = None
-    stage_mask: torch.Tensor = None  # [N] 1.0 = interval active
+    stage_mask: torch.Tensor = None  # [N] or [..., N] 1.0 = interval active
     # [N] 1.0 where interval k carries a dt tie row: k < N−1 (the last
-    # interval would tie the real dt to stage N's dummy dt). Made once, here,
-    # from ``stage_mask``'s device and dtype; ``replace`` and ``to`` keep it.
+    # interval would tie the real dt to stage N's dummy dt). The same for
+    # every lane; made here from ``stage_mask``'s device and dtype, and made
+    # again whenever a ``replace`` or ``to`` changes N, the device or the dtype.
     tie_mask: Optional[torch.Tensor] = None
 
     def __post_init__(self):
-        g = self.grid
-        if self.tie_mask is None or self.tie_mask.shape[-1] != g.N:
-            m = self.stage_mask
+        g, m, t = self.grid, self.stage_mask, self.tie_mask
+        if (t is None or t.shape != (g.N,) or t.device != m.device
+                or t.dtype != m.dtype):
             object.__setattr__(
                 self, "tie_mask",
                 (torch.arange(g.N, device=m.device) < g.N - 1).to(m.dtype))
@@ -96,11 +102,8 @@ class TranscribedOCP:
                 get_fd_collocation(g.fd_scheme)
             else:
                 make_integrator(g.integrator, g.integrator_substeps)
-        if g.dt_mode not in ("fixed", "single"):
-            raise NotImplementedError(
-                f"dt_mode {g.dt_mode!r} is not ported yet (non-uniform grids "
-                "come with the grid-adaptation slice)"
-            )
+        if g.dt_mode not in _DT_MODES:
+            raise ValueError(f"unknown dt_mode {g.dt_mode!r}; have {list(_DT_MODES)}")
         if g.has_u_tie:
             raise NotImplementedError(
                 "move blocking is not ported yet (other-grids slice)"
@@ -146,6 +149,20 @@ class TranscribedOCP:
     @property
     def ng(self) -> int:
         return 0
+
+    @property
+    def per_lane_mask(self) -> bool:
+        """True when the stage mask carries lane dims (one horizon per lane)."""
+        return self.stage_mask.dim() > 1
+
+    def with_mask_lanes(self, W: torch.Tensor) -> torch.Tensor:
+        """W with the lane dims of W and of a per-lane stage mask (a copy
+        per lane where the mask adds lanes: forward-mode AD writes its
+        tangents into W's memory)."""
+        lead = torch.broadcast_shapes(W.shape[:-2], self.stage_mask.shape[:-1])
+        if lead == W.shape[:-2]:
+            return W
+        return W.expand(lead + W.shape[-2:]).contiguous()
 
     # ---------------- packing ----------------
     def pack(self, traj: Trajectory) -> torch.Tensor:
@@ -205,6 +222,7 @@ class TranscribedOCP:
 
     def interval_residuals(self, W: torch.Tensor) -> torch.Tensor:
         """[..., N, nc] all interval equality rows."""
+        W = self.with_mask_lanes(W)
         return self.interval_residual(
             W[..., :-1, :], W[..., 1:, :], self.stage_mask, self.tie_mask
         )
@@ -216,10 +234,16 @@ class TranscribedOCP:
     def interval_jacobians(self, W: torch.Tensor):
         """J [..., N, nc, nz], K [..., N, nc, nz], c [..., N, nc] — exact,
         forward-mode AD per interval vmapped over stages (and lanes)."""
+        W = self.with_mask_lanes(W)
+        m = self.stage_mask
         jac = torch.func.jacfwd(self.interval_residual, argnums=(0, 1))
         fn = torch.func.vmap(jac)  # over stages
-        fn = _vmap_over_lead(fn, W.dim() - 2, 2, 2)
-        J, K = fn(W[..., :-1, :], W[..., 1:, :], self.stage_mask, self.tie_mask)
+        # a per-lane mask goes with the lanes; the tie mask is shared
+        n_lane = 3 if self.per_lane_mask else 2
+        if self.per_lane_mask:
+            m = m.expand(W.shape[:-2] + m.shape[-1:])
+        fn = _vmap_over_lead(fn, W.dim() - 2, n_lane, 4 - n_lane)
+        J, K = fn(W[..., :-1, :], W[..., 1:, :], m, self.tie_mask)
         return J, K, self.interval_residuals(W)
 
     # ---------------- cost ----------------
@@ -255,7 +279,9 @@ class TranscribedOCP:
         return self.objective_from_W(self.pack(traj))
 
     def cost_gradient(self, W: torch.Tensor) -> torch.Tensor:
-        """Exact gradient [..., N+1, nz] of every lane's objective."""
+        """Exact gradient [..., N+1, nz] of every lane's objective (a per-lane
+        mask gives W its lanes)."""
+        W = self.with_mask_lanes(W)
         with torch.enable_grad():
             Wg = W.detach().requires_grad_(True)
             total = self.objective_from_W(Wg).sum()
@@ -270,6 +296,7 @@ class TranscribedOCP:
         (trapezoidal integration) is dropped from the Hessian — but NOT from
         the gradient — which preserves exact KKT solutions."""
         N, nx = self.N, self.nx
+        W = self.with_mask_lanes(W)
         dev, dtype = W.device, W.dtype
         xref, uref, mask = self.refs.xref, self.refs.uref, self.stage_mask
         ks = torch.arange(N + 1, device=dev)
@@ -281,7 +308,7 @@ class TranscribedOCP:
         couples = self.cost.integral and self.grid.cost_integration == "trapezoidal"
         xref_N = xref[-1]
 
-        def phi(v, wp, wn, lf, rt, tm, xl, xl1, ul, ml, xr, xr1, ur, mr):
+        def phi(v, wp, wn, ml, mr, lf, rt, tm, xl, xl1, ul, xr, xr1, ur):
             total = lf * self._stage_term(v, wn, xl, xl1, ul, ml)
             if couples:
                 total = total + rt * self._stage_term(wp, v, xr, xr1, ur, mr)
@@ -291,11 +318,14 @@ class TranscribedOCP:
         W_prev = torch.cat([pad, W[..., :-1, :]], dim=-2)
         W_next = torch.cat([W[..., 1:, :], pad], dim=-2)
         fn = torch.func.vmap(torch.func.hessian(phi, argnums=0))  # over stages
-        fn = _vmap_over_lead(fn, W.dim() - 2, 3, 11)
+        # a per-lane mask goes with the lanes, the rest is shared
+        n_lane = 5 if self.per_lane_mask else 3
+        if self.per_lane_mask:
+            mask = mask.expand(W.shape[:-2] + mask.shape[-1:])
+        fn = _vmap_over_lead(fn, W.dim() - 2, n_lane, 14 - n_lane)
         return fn(
-            W, W_prev, W_next, left, right, is_term,
-            xref[kl], xref[kl + 1], uref[kl], mask[kl],
-            xref[kr], xref[kr + 1], uref[kr], mask[kr],
+            W, W_prev, W_next, mask[..., kl], mask[..., kr], left, right, is_term,
+            xref[kl], xref[kl + 1], uref[kl], xref[kr], xref[kr + 1], uref[kr],
         )
 
     # ---------------- general rows ----------------

@@ -197,8 +197,8 @@ def make_integrator(name: str = "rk4", num_substeps: int = 1) -> ExplicitIntegra
     """Factory: euler | rk2..rk7."""
     if name in _NOT_YET_PORTED:
         raise NotImplementedError(
-            f"integrator {name!r} is not ported yet (grid-adaptation and "
-            f"periphery slices); have {sorted(_TABLEAUS)}"
+            f"integrator {name!r} is not ported yet (periphery slice F); "
+            f"have {sorted(_TABLEAUS)}"
         )
     if name not in _TABLEAUS:
         raise KeyError(f"unknown integrator {name!r}; have {sorted(_TABLEAUS)}")

@@ -17,7 +17,12 @@ from control_box_rst_tpu_torch.ocp.transcribe import TranscribedOCP
 from control_box_rst_tpu_torch.sim.closed_loop import ClosedLoopResult, run_closed_loop
 from control_box_rst_tpu_torch.sim.plant import SimulatedPlant
 from control_box_rst_tpu_torch.solvers.lm import LMConfig, lm_solve
-from control_box_rst_tpu_torch.solvers.sqp import SQPConfig, hoist_structure, sqp_solve
+from control_box_rst_tpu_torch.solvers.sqp import (
+    SQPConfig,
+    hoist_structure,
+    resolve_qp_backend,
+    sqp_solve,
+)
 from control_box_rst_tpu_torch.utils.precision import resolve_device, resolve_dtype
 from control_box_rst_tpu_torch.utils.tree import tree_to
 
@@ -47,11 +52,8 @@ def make_batched_solver(
     _refuse_mesh(mesh)
     device = resolve_device(device)
     dtype = resolve_dtype(dtype)
-    cfg = cfg or SQPConfig()
     # fused QP solve: float32 box-only QP on the card — the kernel's envelope
-    if (cfg.qp.backend is None and ocp.ng == 0 and device.type == "cuda"
-            and dtype == torch.float32):
-        cfg = cfg.replace(qp=cfg.qp.replace(backend="fused"))
+    cfg = resolve_qp_backend(cfg or SQPConfig(), ocp.ng, device, dtype)
     ocp = ocp.to(device=device, dtype=dtype)
     N, nu = ocp.N, ocp.nu
     xf = ocp.bc.xf if ocp.bc.xf is not None else ocp.refs.xref[-1]

@@ -183,7 +183,10 @@ class LMProblem:
         free, N = self.free, self.ocp.N
         jac = torch.func.jacfwd(_with_value(self.interval_res), argnums=(0, 1), has_aux=True)
         over_stages = torch.func.vmap(jac, in_dims=(0,) * 9 + (None, None))
-        over_lanes = torch.func.vmap(over_stages, in_dims=(0, 0) + (None,) * 7 + (0, 0))
+        # the stage data is shared by the lanes, but for a per-lane mask
+        mask_dim = 0 if self.ocp.per_lane_mask else None
+        over_lanes = torch.func.vmap(
+            over_stages, in_dims=(0, 0, None, None, mask_dim) + (None,) * 4 + (0, 0))
         (J, K), r_int = over_lanes(
             W[:, :-1], W[:, 1:], *self._stage_data(), w_eq, w_b)
         J = J * free[:-1, None, :]
@@ -296,8 +299,12 @@ def lm_solve(
     system on the card); the answer does not depend on it."""
     cfg = cfg or LMConfig()
     traj0 = ocp.apply_boundary(traj0)
-    W0 = ocp.pack(traj0)
+    # a per-lane stage mask gives the iterate its lanes; both are flattened
+    # to one lane dim
+    W0 = ocp.with_mask_lanes(ocp.pack(traj0))
     lead = W0.shape[:-2]
+    if ocp.per_lane_mask:
+        ocp = ocp.replace(stage_mask=ocp.stage_mask.expand(lead + (ocp.N,)).reshape(-1, ocp.N))
     prob = LMProblem(ocp, cfg, W0.dtype, inplace)
     state = prob.init_state(W0.reshape((-1,) + W0.shape[-2:]))
     while True:

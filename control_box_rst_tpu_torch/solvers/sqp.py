@@ -88,6 +88,16 @@ class SQPHoisted(NamedTuple):
     Hm: Optional[torch.Tensor]
 
 
+def resolve_qp_backend(cfg: SQPConfig, ng: int, device, dtype) -> SQPConfig:
+    """``cfg`` with ``qp.backend=None`` resolved for a solve on ``device`` in
+    ``dtype``: 'fused' (the box-QP kernel) for float32 without general rows
+    on the card, else 'plain'. A backend named by the caller stays."""
+    if cfg.qp.backend is not None:
+        return cfg
+    fused = torch.device(device).type == "cuda" and dtype == torch.float32 and ng == 0
+    return cfg.replace(qp=cfg.qp.replace(backend="fused" if fused else "plain"))
+
+
 def _amax2(a: torch.Tensor) -> torch.Tensor:
     """Per-lane max over the trailing [stage, entry] dims."""
     return a.amax(dim=(-2, -1))
@@ -141,9 +151,13 @@ def hoist_structure(
     and dts and on ``cfg.prox`` only, so a caller that solves many batches
     from the same initial guess (``make_batched_solver``) computes it once
     and passes it to ``sqp_solve`` — what tracing under ``jit`` does for the
-    reference."""
+    reference.
+
+    Nothing is hoisted for a per-lane stage mask: the identity-chain rows of
+    J/K and the masked cost blocks differ from lane to lane, so one shared
+    copy would give every lane the first lane's horizon."""
     cfg = cfg or SQPConfig()
-    if not ocp.lti_structure:
+    if not ocp.lti_structure or ocp.per_lane_mask:
         return SQPHoisted(None, None, None)
     N, nz = ocp.N, ocp.nz
     dtype, dev = traj0.X.dtype, traj0.X.device
@@ -184,7 +198,8 @@ def sqp_solve(
         )
 
     traj0 = ocp.apply_boundary(traj0)
-    W0 = ocp.pack(traj0)
+    # a per-lane stage mask gives the iterate its lanes
+    W0 = ocp.with_mask_lanes(ocp.pack(traj0))
     dtype, dev = W0.dtype, W0.device
     lead = tuple(W0.shape[:-2])
 
@@ -214,12 +229,17 @@ def sqp_solve(
     alphas = 0.5 ** torch.arange(cfg.ls_candidates, **kw)
 
     # ---- hoist constant structure out of the iteration loop ----
-    # LTI + fixed dt: J, K are constant in W; quadratic cost: Hd constant.
-    hoist_JK = ocp.lti_structure
-    hoist_H = ocp.constant_hessian
+    # LTI + fixed dt: J, K are constant in W; quadratic cost: Hd constant;
+    # neither under a per-lane stage mask (see ``hoist_structure``)
     if hoisted is None:
         hoisted = hoist_structure(ocp, traj0, cfg)
     Jm_c, Km_c, Hm_c = hoisted
+    if ocp.per_lane_mask and Jm_c is not None:
+        raise ValueError(
+            "a hoisted J/K is shared by every lane and cannot serve a per-lane "
+            "stage mask; pass hoisted=None")
+    hoist_JK = ocp.lti_structure and not ocp.per_lane_mask
+    hoist_H = ocp.constant_hessian and not ocp.per_lane_mask
 
     def _mask_H(Hd):
         return _mask_hessian(Hd, free, cfg.prox)

@@ -431,8 +431,6 @@ def test_what_is_not_ported_raises_by_name():
     kw = dict(nx=2, nu=1, ocp=ocp, dt=0.1, cfg=cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="slice E"):
         PredictiveController(solver="ip", **kw)
-    with pytest.raises(NotImplementedError, match="slice D"):
-        PredictiveController(adaptation=object(), **kw)
     with pytest.raises(KeyError):
         PredictiveController(solver="newton", **kw)
     with pytest.raises(NotImplementedError, match="slice F"):

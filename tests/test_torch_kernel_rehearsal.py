@@ -136,27 +136,39 @@ def test_boxqp_solve_kernels_on_the_host(libs, B, shared, kkt, nc, Kst):
 
 
 def _first_sqp_iteration_qps(config, B):
-    """The box QPs that config 2's / config 3's outer SQP loop hands the
-    kernel's wrapper in its first iteration, for the first B lanes of the
-    chip run's batch (Kst = 21, Hd/J/K per lane), caught at the wrapper, and
-    the wrapper's scalars in argument order."""
+    """The box QPs that an outer SQP loop hands the kernel's wrapper in its
+    first iteration, for the first B lanes of the chip run's batch (Hd/J/K
+    per lane), caught at the wrapper, and the wrapper's scalars in argument
+    order: config 2's and config 3's (Kst = 21), config 4's (Kst = 11), and
+    those of one step of config 4's adaptive controller (Kst = 16), its lanes
+    on different active horizons."""
     from control_box_rst_tpu_torch import entry
     from control_box_rst_tpu_torch.parallel import make_batched_solver
 
+    fused = lambda cfg: cfg.replace(max_iter=1, qp=cfg.qp.replace(backend="fused"))
     if config == "vdp_ms":
         ocp, cfg = entry.vdp_ms(device="cpu")
         x0s = np.random.default_rng(1).uniform(-1.5, 1.5, (4096, 2))[:B]
     else:
-        ocp, cfg = entry.time_optimal(device="cpu")
-        d = np.random.default_rng(2).uniform(0.5, 2.0, (4096,))[:B]
+        seed = 2 if config == "time_optimal" else 4
+        d = np.random.default_rng(seed).uniform(0.5, 2.0, (4096,))[:B]
         x0s = np.stack([d, np.zeros_like(d)], axis=1)
+        ocp, cfg = (entry.time_optimal(device="cpu") if config == "time_optimal"
+                    else entry.nonuniform_ms_timeopt(device="cpu"))
     caught, real = [], ak.boxqp_solve
     ak.boxqp_solve = lambda *a, **kw: caught.append((a, kw)) or real(*a, **kw)
     try:
-        make_batched_solver(
-            ocp, cfg.replace(max_iter=1, qp=cfg.qp.replace(backend="fused")),
-            dt_init=0.1 if config == "vdp_ms" else 0.12, device="cpu",
-        )(x0s.astype(np.float32))
+        if config == "nonuniform_adaptive_step":
+            ctrl, _, _, _ = entry.nonuniform_ms_timeopt_adaptive(device="cpu")
+            ctrl = ctrl.replace(cfg=fused(ctrl.cfg))
+            x = torch.as_tensor(x0s, dtype=torch.float32)
+            carry = ctrl.init_carry(x)
+            n_active = torch.arange(B, dtype=torch.int32) % (ctrl.ocp.N - 2) + 3
+            ctrl.step(carry._replace(n_active=n_active), x, 0.0, 0.1)
+        else:
+            make_batched_solver(
+                ocp, fused(cfg), dt_init=0.12 if config == "time_optimal" else 0.1, device="cpu",
+            )(x0s.astype(np.float32))
     finally:
         ak.boxqp_solve = real
     (args, kw), = caught
@@ -165,18 +177,26 @@ def _first_sqp_iteration_qps(config, B):
     return list(args), tuple(kw[k] for k in keys)
 
 
-@pytest.mark.parametrize("config", ["vdp_ms", "time_optimal"])
+NONLINEAR_QP_SHAPES = {  # (Kst, nc) of each path's QPs
+    "vdp_ms": (21, 2), "time_optimal": (21, 3),
+    "nonuniform_ms_timeopt": (11, 2), "nonuniform_adaptive_step": (16, 2),
+}
+
+
+@pytest.mark.parametrize("config", list(NONLINEAR_QP_SHAPES))
 def test_boxqp_solve_kernel_on_nonlinear_qps_is_as_close_as_plain(libs, config):
     """The shared-memory kernel on the QPs of the nonlinear paths (config 3's
-    are stiff: Hd = 0 and a dt column ~100x the others, condition ~3e5) is as
-    close to the float64 plain version as the float32 plain version (x, y_d,
-    y_b, 2x + 1e-4), and takes the plain version's rounds. Summing J'J before
-    the one product by rho_eq is what keeps it there: a product per row left
-    config 3's duals 6x farther than the plain version."""
+    are stiff: Hd = 0 and a dt column ~100x the others, condition ~3e5;
+    config 4's adaptive step mixes horizons, its inactive intervals identity
+    chains with free, cost-free dt columns) is as close to the float64 plain
+    version as the float32 plain version (x, y_d, y_b, 2x + 1e-4), and takes
+    the plain version's rounds. Summing J'J before the one product by rho_eq
+    is what keeps it there: a product per row left config 3's duals 6x
+    farther than the plain version."""
     args, scal = _first_sqp_iteration_qps(config, 32)
     B, Kst, nz = args[0].shape[:3]
     nc = args[1].shape[2]
-    assert (Kst, nc) == (21, 2 if config == "vdp_ms" else 3)
+    assert (Kst, nc) == NONLINEAR_QP_SHAPES[config]
     assert not ak._lane_invariant(*args[:3])
     kern = ak._launch_smem(libs[0][nz, nc], "boxqp_solve", args, (B, Kst, nz, nc), scal, 0)
     plain = ak.boxqp_solve_plain(*args, *scal)

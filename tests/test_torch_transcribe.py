@@ -237,7 +237,6 @@ def test_unported_structure_is_refused():
 
     _, ocp_t = _ocps("config1")
     for grid in (
-        Grid(N=N, dt_mode="per_interval"),
         Grid(N=N, kind="ms", integrator="adaptive_step"),
         Grid(N=N, fd_scheme="backward"),
         Grid(N=N, u_blocks=tuple(range(N))),
@@ -246,3 +245,5 @@ def test_unported_structure_is_refused():
             ocp_t.replace(grid=grid)
     with pytest.raises(KeyError):
         get_fd_collocation("no_such_scheme")
+    with pytest.raises(ValueError):
+        ocp_t.replace(grid=Grid(N=N, dt_mode="no_such_dt_mode"))
