@@ -14,7 +14,10 @@ against the simulated double integrator) through ``make_batched_closed_loop``,
 and config 4 (the time-optimal double integrator on the non-uniform
 multiple-shooting grid, a free dt per interval) open loop at B=4096 and under
 MPC with the RedundantControls grid adaptation (4096 rollouts of 25 steps,
-every lane its own active horizon) — after building every CUDA kernel of those paths from the sources in this
+every lane its own active horizon), and the interior-point paths (config 1 by
+``make_batched_ip_solver`` at B=32768, the constrained double integrator by
+IP, SQP and LM at B=4096, config 5 under the IP controller) — after building
+every CUDA kernel of those paths from the sources in this
 checkout and holding each kernel against its plain PyTorch version on the same
 inputs. There is no CPU path: without a CUDA device the script exits non-zero
 and prints no result. Any phase that fails raises, and the run fails with it.
@@ -23,7 +26,8 @@ Phases
   1 device   require CUDA; card name and power limit (nvidia-smi)
   2 build    compile csrc/*.cu with nvcc, one process per library (the
              box-QP source for (nz, nc) = (4, 2) and (4, 3), the
-             block-tridiagonal source), started together (seconds)
+             block-tridiagonal source for nz = 4 and for nz = 2), started
+             together (seconds)
   3 kernels  box-QP ADMM kernels vs plain version at flagship shapes (Kst=51,
              nz=4, nc=2): the reciprocal-based quotient of the kernels against
              the division, bit for bit, on random operands; 256 lanes of
@@ -54,7 +58,14 @@ Phases
              not divisible by 32, D and O broadcast, lanes a stride apart,
              the caller's D and O untouched, K=1001, the kernels against each
              other, wrapper and kernel-alone times on random and on LM's
-             systems, bounds and the dense library call as a yardstick
+             systems, bounds and the dense library call as a yardstick.
+             The same two kernels built for nz = 2 (the interior-point
+             solver's Schur systems: K=50 stages of 2x2 blocks, 16 lanes a
+             warp, B=32768): random SPD systems (atol 5e-6), IP's own Schur
+             systems of config 1's first and 8th lock-step iteration (as
+             close to the float64 plain version as the float32 plain
+             version), B=1, 8 and 1000 give the first lanes' bits, K3 against
+             K4, times, bound, launch shape, the dense library call
   4 main     the batched SQP solve; gates: converged fraction >= 0.99, max
              |U - U_oracle| <= 1e-3 on the first 64 lanes (f64 oracle golden
              file), kernel launch counter > 0; solves/s, mean SQP iterations,
@@ -108,7 +119,33 @@ Phases
              config 4's first-iteration QPs (Kst=11) and on the QPs of
              adaptive step 8 (Kst=16, lanes of mixed horizons, identity-chain
              rows checked), held as on configs 2 and 3
-  9 result   one JSON line with every kernel's record, then the contract line
+  9 ip       config 1 by IP (``entry.flagship_ip``, B=32768): converged >=
+             0.99, max |U - U_oracle| <= 1e-3 on the 64 golden lanes, K4 (nz=2)
+             launches == the lock-step IP iterations; solves/s (best of 3),
+             IP iterations, peak memory, B=1 p50 / p99 (20 calls). The
+             constrained double integrator (``entry.constrained_di``: x2 >=
+             -0.9 and x_N = 0 as general rows, N=25, B=4096, d ~ U(-2, 2)
+             from default_rng(6)): by IP (converged >= 0.99, min x2 >= -0.9
+             - 1e-5 on every lane, max |x_N| <= 1e-4, max |U - U_oracle|
+             <= 1e-3 on the 64 lanes of its float64 golden file, K4 nz=2
+             launches == lock-step iterations, K4 on its nz=2 shared-memory
+             kernel at 16 lanes a warp), by IP once more through
+             ``make_batched_ip_solver(inplace=False)`` (K3 launches ==
+             lock-step iterations, converged >= 0.99, the U gate), by SQP
+             through the plain ADMM (the same quality gates, no kernel
+             launched), by LM (K4 nz=4 launches == lock-step iterations, U
+             finite; converged fraction and the worst violation reported);
+             then K3 and K4 against the float64 plain version on the
+             systems these solves hand them (IP's Schur systems, nz=2,
+             K=25; LM's, nz=4, K=26; the first and a late iteration of
+             each), as close as the float32 plain version. Config 5 under
+             the IP controller (``entry.rollouts_ip``, 4096 rollouts of 5
+             steps): K4 nz=2 launches == the sum over steps of the lock-step
+             IP iterations, u finite and |u| <= 1 + 1e-6, usable fraction of
+             the first 64 rollouts no lower than the JAX package's own
+             float32 run; max |u_ip - u_sqp| against config 5's SQP rollout
+             reported
+ 10 result   one JSON line with every kernel's record, then the contract line
 
 Output: progress lines (with ``--profile`` a ``{"profile": ...}`` line with
 the device time by kernel and the hand-written kernels launch by launch, a
@@ -120,14 +157,20 @@ batch, with its device idle share and the eager kernels per MPC step, and a
 ``{"profile_nonuniform": ...}`` line: one traced config-4 batch and 5 traced
 steps of its adaptive rollouts), then a ``{"main": ...}`` line, a ``{"lm":
 ...}`` line, a ``{"nonlinear": ...}`` line, a ``{"closed_loop": ...}`` line,
-a ``{"nonuniform": ...}`` line, the nvidia-smi line, a ``{"kernels": [...]}``
+a ``{"nonuniform": ...}`` line, an ``{"ip": ...}`` line (``--profile``
+adds ``profile_ip``: one traced config-1 and constrained-DI IP batch, eager
+kernels per IP iteration), the nvidia-smi line, a ``{"kernels": [...]}``
 line (per kernel the contract's keys and, where a kernel was redesigned,
 ``earlier_ms`` / ``vs_earlier``: the kernel it replaced on the same inputs,
 and ``launch``: route, shared memory per lane, resident lanes per SM,
 registers per thread; the box-QP solve kernel adds ``launches_by_path`` and
 ``shapes``, its records at the nonlinear paths' shapes, on the closed
 loop's step-5 QPs and at config 4's two horizons; the in-place block-tridiagonal kernel adds
-``launches_by_path``: LM on config 1 and the LM closed loop), and as the last
+``launches_by_path``: LM on config 1, the LM closed loop, config 1 by IP, the
+constrained double integrator by IP and by LM, the IP controller; K3 its
+``inplace=False`` LM and IP passes; both add ``nz2``, their record at the IP
+Schur systems' shape, and ``held_on_paths``, their errors on the constrained
+double integrator's own systems), and as the last
 line ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
 ...}}``.
 """
@@ -170,6 +213,17 @@ NU_CL_TRIALS = 1   # config 4 closed loop: best of the counted and NU_CL_TRIALS 
 NU_SINGLE = 20     # single config-4 solves for the open loop's p50 / p99
 NU_CHECK_STEP = 8  # the adaptive MPC step whose QPs (mixed horizons) K1 is held to
 NU_PLAIN_STEPS = 10  # steps of config 4's rollouts also run by the plain backend
+IP_TRIALS = 3      # config 1 by IP: best of IP_TRIALS single batches
+IP_SINGLE = 20     # single config-1 IP solves for its p50 / p99
+IP_LATE_ITERATION = 8  # the "late" IP iteration whose Schur systems are checked
+DI_BATCH = 4096    # lanes of the constrained double integrator
+DI_DT = 0.25       # its pinned dt, carried by the initial guess
+DI_GOLDEN = ROOT / "tests" / "golden" / "torch_constrained_di_oracle_N25.npz"
+IP_CL_BATCH = 4096  # rollouts of config 5 under the IP controller
+IP_CL_STEPS = 5     # its steps
+# the JAX package's own float32 run of those rollouts (tools/ip_calibration.py):
+# the usable-step fraction of the first 64, which the port's may not fall below
+IP_CL_REF_LANES, IP_CL_REF_USABLE = 64, 1.0
 # the JAX package's own float32 run of config 4's adaptive closed loop on the
 # first 64 rollouts (tools/config4_calibration.py --closed-loop): their
 # usable-step fraction, which the port's first 64 rollouts may not fall below
@@ -1940,6 +1994,433 @@ def phase_profile(solvers, x0s_np, top: int = 14):
     return out
 
 
+# --------------------------------------------------------------------------
+# the interior-point paths (config 1 by IP, the constrained double
+# integrator by IP / SQP / LM, config 5 under the IP controller) and the
+# block-tridiagonal kernels at nz = 2 (IP's nc x nc Schur systems)
+# --------------------------------------------------------------------------
+
+def constrained_di_x0s(n: int = DI_BATCH) -> np.ndarray:
+    """The constrained double integrator's batch: x0 = [d, 0], d ~ U(-2, 2)
+    from ``default_rng(6)``, lane 0 at d = 2 (the golden file's lanes)."""
+    d = np.random.default_rng(6).uniform(-2.0, 2.0, size=DI_BATCH)
+    d[0] = 2.0
+    return np.stack([d, np.zeros(DI_BATCH)], axis=1).astype(np.float32)[:n]
+
+
+def btridiag_systems(mod, run, calls):
+    """The systems (D, O, b) that a solver module hands to the
+    block-tridiagonal kernel (``mod.btridiag_factor_solve``, one call per
+    lock-step iteration) at the given calls (0 = the first) while ``run()``
+    solves: a catch on the solver's call, which still launches its kernel."""
+    real, kept, n = mod.btridiag_factor_solve, {}, [0]
+
+    def catch(D, O, b, inplace=True):
+        if n[0] in calls:
+            kept[n[0]] = (D.clone(), O.clone(), b.clone())
+        n[0] += 1
+        return real(D, O, b, inplace=inplace)
+
+    mod.btridiag_factor_solve = catch
+    try:
+        run()
+    finally:
+        mod.btridiag_factor_solve = real
+    torch.cuda.synchronize()
+    if sorted(kept) != sorted(calls):
+        raise AssertionError(f"the solve stopped after {n[0]} calls, before call {max(calls)}")
+    return kept
+
+
+def hold_btridiag_on_systems(label, systems, nz, lost_ok=False, reps=0):
+    """K3 and K4 on a solver's own systems ({iteration: (D, O, b)}) against
+    the plain version: each kernel as close to the float64 plain version as
+    the float32 plain version is (slack 2x + 1e-5), K3 on its scratch route,
+    K4 on its shared-memory route with 32 / nz lanes a warp. Every lane must
+    be finite, but where ``lost_ok`` (LM's systems J'J + mu I, badly
+    conditioned once the penalty weights have grown): there a system that is
+    not positive definite in float32 gives NaN in its lane on either side,
+    the kernel may lose no more lanes than the plain version (+5 % of its
+    count, +0.1 % of the batch), and the others are compared. With ``reps``
+    each call is also timed. Returns ({kernel: {"it<k>": errors}},
+    {kernel: {"it<k>": ms}})."""
+    from control_box_rst_tpu_torch.ops.cuda import btridiag_kernel as bk
+
+    name3, name4 = "btridiag_factor_solve", "btridiag_factor_solve_inplace"
+    solve = {
+        name3: lambda D, O, b: bk.btridiag_factor_solve(D, O, b, inplace=False),
+        name4: lambda D, O, b: bk.btridiag_factor_solve(D, O, b, inplace=True),
+    }
+    fin = lambda x: torch.isfinite(x).all(dim=2).all(dim=1)
+    errs = {name: {} for name in solve}
+    ms = {name: {} for name in solve}
+    for it, (D, O, b) in systems.items():
+        B, K = b.shape[:2]
+        if b.shape[2] != nz:
+            raise AssertionError(f"{label}: systems of nz={b.shape[2]}, expected {nz}")
+        x_p = bk.btridiag_factor_solve_plain(D, O, b)
+        x_d = bk.btridiag_factor_solve_plain(D.double(), O.double(), b.double())
+        for name, fn in solve.items():
+            x_k = fn(D, O, b)
+            torch.cuda.synchronize()
+            info = bk.LAUNCH_INFO[name]
+            if name == name3 and info.get("route") != "scratch":
+                raise AssertionError(f"{label}: {name3} took {info}, not K3's scratch kernel")
+            if name == name4 and (info.get("route") != "smem"
+                                  or info.get("lanes_per_warp") != 32 // nz):
+                raise AssertionError(f"{label}: {name4} took {info}, not the nz={nz} "
+                                     "shared-memory kernel")
+            lost_k, lost_p = int((~fin(x_k)).sum()), int((~fin(x_p)).sum())
+            ok = fin(x_k) & fin(x_p) & fin(x_d) if lost_ok else torch.ones_like(fin(x_k))
+            if lost_ok and lost_k > 1.05 * lost_p + B // 1000:
+                raise AssertionError(
+                    f"{label} {name} iteration {it}: {lost_k} non-finite lanes, "
+                    f"the plain version {lost_p}")
+            e_k, e_p = assert_as_close_as_plain(
+                f"{label} {name} nz={nz} K={K} iteration {it}", x_k[ok], x_p[ok], x_d[ok])
+            errs[name][f"it{it}"] = dict(err_vs_f64=e_k, plain_err_vs_f64=e_p,
+                                         x_max=float(x_d[ok].abs().max()))
+            if lost_ok:
+                errs[name][f"it{it}"].update(nonfinite_lanes=lost_k, plain_nonfinite_lanes=lost_p)
+            if reps:
+                ms[name][f"it{it}"] = time_ms(lambda fn=fn: fn(D, O, b), reps)
+    log(f"{label}: K3/K4 nz={nz} on the solver's own systems: {json.dumps(errs)}")
+    return errs, ms
+
+
+def phase_btridiag_nz2_kernels(ocp, ip_cfg, x0s_all, reps: int):
+    """K3 and K4 built for nz = 2 (the IP solver's Schur systems at config
+    1's shape: K = 50 stages of 2 x 2 blocks, B = 32768) against their plain
+    version: random SPD systems (atol 5e-6); IP's own Schur systems at its
+    first and a late lock-step iteration, as close to the float64 plain
+    version as the float32 plain version; B = 1, 8 and 1000 (not a multiple
+    of the 16 lanes of a warp) give the first lanes' bits; the two kernels
+    bit for bit; times (wrapper, kernel alone), bound, launch shape and the
+    dense library call as a yardstick. Returns name -> record at nz = 2."""
+    from control_box_rst_tpu_torch.ops.cuda import btridiag_kernel as bk
+
+    B, K, nz = x0s_all.shape[0], ocp.N, ocp.nc
+    dev = x0s_all.device
+    name3, name4 = "btridiag_factor_solve", "btridiag_factor_solve_inplace"
+    solve = {
+        name3: lambda D, O, b: bk.btridiag_factor_solve(D, O, b, inplace=False),
+        name4: lambda D, O, b: bk.btridiag_factor_solve(D, O, b, inplace=True),
+    }
+    if bk.solve_route(K, nz) != "smem" or bk.lanes_per_warp(nz) != 16:
+        raise AssertionError(f"nz={nz}, K={K}: expected the shared-memory route, 16 lanes a warp")
+    D, O, b = random_spd_systems(B, K, nz, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x_plain = bk.btridiag_factor_solve_plain(D, O, b)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    x_kern, max_err, info = {}, {}, {}
+    for name, fn in solve.items():
+        x_kern[name] = fn(D, O, b)
+        torch.cuda.synchronize()
+        info[name] = dict(bk.LAUNCH_INFO[name])
+        max_err[name] = assert_close(f"{name} nz={nz} random SPD", x_kern[name], x_plain,
+                                     rtol=0.0, atol=5e-6)
+    if info[name3].get("route") != "scratch" or info[name4].get("route") != "smem":
+        raise AssertionError(f"nz={nz}: routes {info}")
+    bit_equal = torch.equal(x_kern[name3], x_kern[name4])
+    d34 = float((x_kern[name3] - x_kern[name4]).abs().max())
+    if not d34 <= 1e-6:
+        raise AssertionError(f"nz={nz}: the two kernels differ by {d34:.3e}")
+    for n in (1, 8, 1000):
+        for name, fn in solve.items():
+            x_n = fn(D[:n], O[:n], b[:n])
+            torch.cuda.synchronize()
+            if not torch.equal(x_n, x_kern[name][:n]):
+                raise AssertionError(f"{name} nz={nz}: B={n} disagrees with the first lanes")
+    ms = {name: time_ms(lambda fn=fn: fn(D, O, b), reps) for name, fn in solve.items()}
+    tags = {name3: "btridiag_factor_solve_scratch_kernel",
+            name4: "btridiag_factor_solve_smem_kernel"}
+    alone = kernels_alone_ms({name: (lambda fn=fn: fn(D, O, b), tags[name])
+                              for name, fn in solve.items()}, reps)
+    lib_ms, lib_B = dense_library_ms(D, O, b, x_kern[name4], 2)
+    t_bytes = bk.io_bytes(K, nz, B) / PEAK_BYTES_PER_S * 1e3
+    t_ops = B * bk.factor_solve_flops(K, nz) / PEAK_FP32_PER_S * 1e3
+    del D, O, b, x_plain, x_kern
+
+    # IP's own Schur systems on the config-1 batch
+    from control_box_rst_tpu_torch.ocp.problem import Trajectory
+    from control_box_rst_tpu_torch.solvers import ip as ip_mod
+
+    o = ocp.replace(bc=ocp.bc.replace(x0=x0s_all))
+    traj0 = Trajectory.linear_interp(x0s_all, o.refs.xref[-1], o.N, o.nu, 0.1)
+    systems = btridiag_systems(
+        ip_mod, lambda: ip_mod.ip_solve(o, traj0, ip_cfg), (0, IP_LATE_ITERATION))
+    ip_errs, ip_ms = hold_btridiag_on_systems(
+        f"config 1 IP Schur systems [{B} lanes]", systems, nz, reps=reps)
+    del systems
+    log(f"btridiag kernels nz={nz} [{B} lanes, K={K}]: " + json.dumps(
+        dict(max_err=max_err, k3_vs_k4=d34, bit_equal=bit_equal, ip_systems=ip_errs)))
+    return {name: dict(
+        nz=nz, K=K, batch=B, max_abs_err=max_err[name], ms=ms[name], alone_ms=alone[name],
+        plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        bound_bytes_ms=t_bytes, bound_ops_ms=t_ops, library_ms=lib_ms, library_batch=lib_B,
+        launch=info[name], k3_vs_k4=d34, k3_bit_equal_k4=bit_equal,
+        ip_systems=ip_errs[name], ip_systems_ms=ip_ms[name],
+    ) for name in solve}
+
+
+def _lock_step_launches(bk, label, want):
+    got = dict(bk.LAUNCHES)
+    log(f"{label}: btridiag launches {got}, lock-step iterations {want}")
+    if got["btridiag_factor_solve_inplace"] != want or want <= 0 or got["btridiag_factor_solve"]:
+        raise AssertionError(f"{label}: launches {got}, expected {want} = the lock-step "
+                             "iterations of K4's in-place solve and none of K3")
+    return want
+
+
+def _constrained_quality(label, X, U, status, gold, gates=True):
+    """The constrained double integrator's gates: converged fraction, the
+    state row on every lane, x_N = 0, U against the float64 golden lanes."""
+    n_g = gold["U"].shape[0]
+    rec = dict(
+        converged_frac=float((status == 1).float().mean()),
+        min_x2=float(X[..., 1].min()), max_abs_xN=float(X[:, -1].abs().max()),
+        max_u_err_vs_f64_oracle=float(np.abs(U[:n_g].double().cpu().numpy() - gold["U"]).max()),
+        finite=bool(torch.isfinite(U).all()),
+    )
+    log(f"constrained DI ({label}): " + json.dumps(rec))
+    if gates:
+        for key, ok in (("converged_frac", rec["converged_frac"] >= CONV_GATE),
+                        ("min_x2", rec["min_x2"] >= -0.9 - 1e-5),
+                        ("max_abs_xN", rec["max_abs_xN"] <= 1e-4),
+                        ("max_u_err_vs_f64_oracle", rec["max_u_err_vs_f64_oracle"] <= ERR_GATE),
+                        ("finite", rec["finite"])):
+            if not ok:
+                raise AssertionError(f"constrained DI ({label}): {key} {rec[key]} misses its gate")
+    return rec
+
+
+def phase_ip(x0s_np, trials: int, n_single: int):
+    """The interior-point paths on the card. Returns (K4 launches by path,
+    K3 launches by path, K3/K4 held on the constrained DI's own systems by
+    path, the record of the ``{"ip": ...}`` line, the solvers for
+    ``--profile``)."""
+    from control_box_rst_tpu_torch.entry import constrained_di, flagship_ip, rollouts, rollouts_ip
+    from control_box_rst_tpu_torch.ocp.problem import Trajectory
+    from control_box_rst_tpu_torch.ops.cuda import admm_kernel as ak
+    from control_box_rst_tpu_torch.ops.cuda import btridiag_kernel as bk
+    from control_box_rst_tpu_torch.parallel import (
+        make_batched_closed_loop,
+        make_batched_ip_solver,
+    )
+    from control_box_rst_tpu_torch.solvers import ip_solve, lm_solve, sqp_solve
+    from control_box_rst_tpu_torch.solvers.sqp import resolve_qp_backend
+
+    launches, rec = {}, {}
+    # ---- config 1 by IP (B = 32768) ----
+    ocp, cfg = flagship_ip(N=50)  # device=None: the card
+    solver = make_batched_ip_solver(ocp, cfg, dt_init=0.1)
+    B = x0s_np.shape[0]
+    x0s = torch.as_tensor(x0s_np, device="cuda")
+    solver(x0s[:256])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bk.reset_launch_counts()
+    t0 = time.perf_counter()
+    U, obj, status, iters = solver(x0s)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    launches["ip_config1"] = _lock_step_launches(bk, "config 1 by IP", int(iters.max()))
+    # the lanes that ran to the iteration cap, for the float32 witness of
+    # tools/ip_f32_witness.py
+    capped = torch.nonzero(iters >= cfg.max_iter).flatten().tolist()
+    k4_info = dict(bk.LAUNCH_INFO["btridiag_factor_solve_inplace"])
+    if k4_info.get("route") != "smem" or k4_info.get("lanes_per_warp") != 16:
+        raise AssertionError(f"config 1 by IP: K4 took {k4_info}, not the nz=2 shared-memory kernel")
+    if U.shape != (B, ocp.N, ocp.nu) or not bool(torch.isfinite(U).all()):
+        raise AssertionError("config 1 by IP: U has the wrong shape or non-finite values")
+    conv = float((status == 1).float().mean())
+    gold = np.load(GOLDEN)
+    n_g = gold["U"].shape[0]
+    u_err = float(np.abs(U[:n_g].double().cpu().numpy() - gold["U"]).max())
+    log(f"config 1 by IP: converged {conv:.5f}, max |U - U_oracle| {u_err:.3e}, "
+        f"iterations mean {float(iters.float().mean()):.2f} max {int(iters.max())}")
+    if conv < CONV_GATE:
+        raise AssertionError(f"config 1 by IP: converged_frac {conv:.4f} < {CONV_GATE}")
+    if not u_err <= ERR_GATE:
+        raise AssertionError(f"config 1 by IP: max |U - U_oracle| {u_err:.3e} > {ERR_GATE}")
+    best = first_s
+    for _ in range(trials - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver(x0s)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    lats = []
+    for _ in range(n_single + 1):
+        t0 = time.perf_counter()
+        solver(x0s[:1])
+        torch.cuda.synchronize()
+        lats.append(time.perf_counter() - t0)
+    lats = np.asarray(lats[1:])
+    rec["config1"] = dict(
+        batch=B, solves_per_s=B / best, batch_solve_ms=best * 1e3, converged_frac=conv,
+        max_u_err_vs_f64_oracle=u_err, mean_ip_iters=float(iters.float().mean()),
+        max_ip_iters=int(iters.max()), capped_lanes=capped,
+        k4_launches=launches["ip_config1"], kernel_launch=k4_info,
+        peak_device_memory_gib=peak_gb, ip_config=dict(tol=cfg.tol, max_iter=cfg.max_iter),
+        p50_single_solve_ms=float(np.percentile(lats, 50) * 1e3),
+        p99_single_solve_ms=float(np.percentile(lats, 99) * 1e3),
+    )
+
+    # ---- the constrained double integrator (B = 4096) by IP, SQP, LM ----
+    di, sqp_cfg, lm_cfg, di_ip_cfg = constrained_di()
+    di_x0s_np = constrained_di_x0s()
+    di_gold = np.load(DI_GOLDEN)
+    if not np.array_equal(di_gold["x0s"], di_x0s_np[:di_gold["x0s"].shape[0]]):
+        raise AssertionError("constrained DI golden file was made for other initial states")
+    xd = torch.as_tensor(di_x0s_np, device="cuda")
+    o = di.replace(bc=di.bc.replace(x0=xd))
+    traj0 = Trajectory.linear_interp(xd, torch.zeros(2, device="cuda"), di.N, di.nu, DI_DT)
+    di_rec = {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    ip_solve(o.replace(bc=o.bc.replace(x0=xd[:64])), traj0.replace(X=traj0.X[:64]), di_ip_cfg)
+    bk.reset_launch_counts()
+    r, s = timed(lambda: ip_solve(o, traj0, di_ip_cfg))
+    launches["ip_constrained_di"] = _lock_step_launches(
+        bk, "constrained DI by IP", int(r.iterations.max()))
+    k4_di = dict(bk.LAUNCH_INFO["btridiag_factor_solve_inplace"])
+    if k4_di.get("route") != "smem" or k4_di.get("lanes_per_warp") != 16:
+        raise AssertionError(f"constrained DI by IP: K4 took {k4_di}, not the nz=2 shared-memory kernel")
+    worst = torch.argsort(r.iterations, descending=True)[:16]
+    di_rec["ip"] = dict(
+        _constrained_quality("IP", r.traj.X, r.traj.U, r.status, di_gold),
+        solves_per_s=DI_BATCH / s, batch_solve_ms=s * 1e3,
+        mean_ip_iters=float(r.iterations.float().mean()), max_ip_iters=int(r.iterations.max()),
+        most_iterations=dict(lanes=worst.tolist(), iterations=r.iterations[worst].tolist()),
+        k4_launches=launches["ip_constrained_di"], kernel_launch=k4_di,
+        ip_config=dict(tol=di_ip_cfg.tol, max_iter=di_ip_cfg.max_iter))
+    u_ip = r.traj.U
+
+    # the same solve asked for K3 (inplace=False), through the batched entry point
+    di_ip_k3 = make_batched_ip_solver(di, di_ip_cfg, dt_init=DI_DT, inplace=False)
+    bk.reset_launch_counts()
+    U3, _, st3, it3 = di_ip_k3(xd)
+    torch.cuda.synchronize()
+    got = dict(bk.LAUNCHES)
+    k3_lock = int(it3.max())
+    if got["btridiag_factor_solve"] != k3_lock or k3_lock <= 0 or got["btridiag_factor_solve_inplace"]:
+        raise AssertionError(f"constrained DI by IP, inplace=False: launches {got}, "
+                             f"expected {k3_lock} = the lock-step iterations of K3 and none of K4")
+    k3_di = dict(bk.LAUNCH_INFO["btridiag_factor_solve"])
+    if k3_di.get("route") != "scratch":
+        raise AssertionError(f"constrained DI by IP, inplace=False: K3 took {k3_di}")
+    k3_paths = {"ip_constrained_di_inplace_false": k3_lock}
+    n_g = di_gold["U"].shape[0]
+    di_rec["ip_inplace_false"] = dict(
+        converged_frac=float((st3 == 1).float().mean()),
+        max_u_err_vs_f64_oracle=float(np.abs(U3[:n_g].double().cpu().numpy() - di_gold["U"]).max()),
+        k3_launches=k3_lock, max_u_k3_vs_k4=float((U3 - u_ip).abs().max()), kernel_launch=k3_di)
+    log(f"constrained DI by IP, inplace=False: {json.dumps(di_rec['ip_inplace_false'])}")
+    if di_rec["ip_inplace_false"]["converged_frac"] < CONV_GATE \
+            or not di_rec["ip_inplace_false"]["max_u_err_vs_f64_oracle"] <= ERR_GATE \
+            or not bool(torch.isfinite(U3).all()):
+        raise AssertionError("constrained DI by IP, inplace=False: misses the IP gates")
+
+    scfg = resolve_qp_backend(sqp_cfg, di.ng, "cuda", torch.float32)
+    if scfg.qp.backend != "plain":
+        raise AssertionError(f"constrained DI by SQP: backend {scfg.qp.backend}, expected 'plain'")
+    ak.reset_launch_counts()
+    bk.reset_launch_counts()
+    r, s = timed(lambda: sqp_solve(o, traj0, scfg))
+    if any(ak.LAUNCHES.values()) or any(bk.LAUNCHES.values()):
+        raise AssertionError(f"constrained DI by SQP launched {ak.LAUNCHES} {bk.LAUNCHES}: "
+                             "the path is the plain ADMM")
+    di_rec["sqp"] = dict(
+        _constrained_quality("SQP", r.traj.X, r.traj.U, r.status, di_gold),
+        solves_per_s=DI_BATCH / s, batch_solve_ms=s * 1e3, qp_backend="plain",
+        boxqp_solve_launches=0, mean_sqp_iters=float(r.iterations.float().mean()),
+        max_sqp_iters=int(r.iterations.max()),
+        max_u_ip_vs_sqp=float((u_ip - r.traj.U).abs().max()))
+
+    lm_solve(o.replace(bc=o.bc.replace(x0=xd[:64])), traj0.replace(X=traj0.X[:64]), lm_cfg)
+    bk.reset_launch_counts()
+    r, s = timed(lambda: lm_solve(o, traj0, lm_cfg))
+    got = dict(bk.LAUNCHES)
+    lm_lock = int(r.iterations.max())
+    if got["btridiag_factor_solve_inplace"] != lm_lock or lm_lock <= 0 or got["btridiag_factor_solve"]:
+        raise AssertionError(f"constrained DI by LM: launches {got}, lock-step {lm_lock}")
+    if bk.LAUNCH_INFO["btridiag_factor_solve_inplace"].get("lanes_per_warp") != 8:
+        raise AssertionError("constrained DI by LM: K4 was not the nz=4 build")
+    launches["lm_constrained_di"] = lm_lock
+    lm_info = dict(bk.LAUNCH_INFO["btridiag_factor_solve_inplace"])
+    if not bool(torch.isfinite(r.traj.U).all()):
+        raise AssertionError("constrained DI by LM: non-finite U")
+    di_rec["lm"] = dict(
+        _constrained_quality("LM", r.traj.X, r.traj.U, r.status, di_gold, gates=False),
+        max_x2_violation=float(torch.clamp(-0.9 - r.traj.X[..., 1], min=0.0).max()),
+        solves_per_s=DI_BATCH / s, batch_solve_ms=s * 1e3,
+        mean_lm_iters=float(r.iterations.float().mean()), max_lm_iters=lm_lock,
+        k4_launches=lm_lock, kernel_launch=lm_info)
+
+    # K3 and K4 held against the plain version on the systems these solves
+    # hand them: IP's Schur systems (nz=2, K=25), LM's damped Gauss-Newton
+    # systems (nz=4, K=26), each at the first and a late iteration
+    from control_box_rst_tpu_torch.solvers import ip as ip_mod
+    from control_box_rst_tpu_torch.solvers import lm as lm_mod
+
+    held = {}
+    held["ip_constrained_di"], _ = hold_btridiag_on_systems(
+        f"constrained DI IP Schur systems [{DI_BATCH} lanes]",
+        btridiag_systems(ip_mod, lambda: ip_solve(o, traj0, di_ip_cfg), (0, IP_LATE_ITERATION)),
+        di.nc)
+    held["lm_constrained_di"], _ = hold_btridiag_on_systems(
+        f"constrained DI LM systems [{DI_BATCH} lanes]",
+        btridiag_systems(lm_mod, lambda: lm_solve(o, traj0, lm_cfg), (0, LM_LATE_ITERATION)),
+        di.nz, lost_ok=True)
+    rec["constrained_di"] = dict(batch=DI_BATCH, **di_rec)
+
+    # ---- config 5 under the IP controller (B = 4096 rollouts) ----
+    ctrl, plant, _, dt = rollouts_ip(N=50)
+    roll = make_batched_closed_loop(ctrl, plant, IP_CL_STEPS, dt)
+    xc = x0s[:IP_CL_BATCH]
+    roll(xc[:256])
+    torch.cuda.synchronize()
+    bk.reset_launch_counts()
+    res, s = timed(lambda: roll(xc))
+    lock = res.info["sqp_iters"].amax(dim=0)
+    launches["ip_controller"] = _lock_step_launches(bk, "IP controller", int(lock.sum()))
+    u = res.u
+    if not bool(torch.isfinite(u).all()) or not float(u.abs().max()) <= 1.0 + 1e-6:
+        raise AssertionError(f"IP controller: u non-finite or beyond the bound ({float(u.abs().max())})")
+    usable = float(res.ok.float().mean())
+    usable_ref = float(res.ok[:IP_CL_REF_LANES].float().mean())
+    if usable_ref < IP_CL_REF_USABLE:
+        raise AssertionError(f"IP controller: usable fraction of the first {IP_CL_REF_LANES} "
+                             f"rollouts {usable_ref:.4f} < the reference's {IP_CL_REF_USABLE}")
+    sctrl, splant, _, _ = rollouts(N=50)
+    res_s = make_batched_closed_loop(sctrl, splant, IP_CL_STEPS, dt)(xc)
+    torch.cuda.synchronize()
+    rec["controller"] = dict(
+        batch=IP_CL_BATCH, t_steps=IP_CL_STEPS, rollout_batch_ms=s * 1e3,
+        rollouts_per_s=IP_CL_BATCH / s, mpc_steps_per_s=IP_CL_BATCH * IP_CL_STEPS / s,
+        usable_step_frac=usable, usable_step_frac_first64=usable_ref,
+        k4_launches=launches["ip_controller"], lock_step_ip_iters=lock.tolist(),
+        mean_ip_iters=float(res.info["sqp_iters"].float().mean()),
+        max_u_ip_vs_sqp=float((u - res_s.u).abs().max()),
+        mean_final_state_norm=float(res.x_true[:, -1].norm(dim=-1).mean()),
+    )
+    log(f"IP controller: {json.dumps(rec['controller'])}")
+    di_ip = make_batched_ip_solver(di, di_ip_cfg, dt_init=DI_DT)
+    return (launches, k3_paths, held, rec,
+            dict(config1_ip=(solver, B), constrained_di_ip=(di_ip, DI_BATCH)))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1958,7 +2439,12 @@ def main() -> int:
     log(f"device: {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
-    from control_box_rst_tpu_torch.entry import flagship, flagship_lm, nonuniform_ms_timeopt
+    from control_box_rst_tpu_torch.entry import (
+        flagship,
+        flagship_ip,
+        flagship_lm,
+        nonuniform_ms_timeopt,
+    )
     from control_box_rst_tpu_torch.ops.cuda import admm_kernel as ak
     from control_box_rst_tpu_torch.ops.cuda import btridiag_kernel as bk
     from control_box_rst_tpu_torch.ops.cuda import build
@@ -1979,7 +2465,8 @@ def main() -> int:
     t0 = time.perf_counter()
     shapes = sorted({(ocp.nz, ocp.nc)} | {(p[0].nz, p[0].nc) for p in problems.values()})
     libs = build.build_all(
-        [ak.build_spec(nz, nc) for nz, nc in shapes] + [bk.build_spec(ocp.nz)], verbose=True)
+        [ak.build_spec(nz, nc) for nz, nc in shapes]
+        + [bk.build_spec(ocp.nz), bk.build_spec(ocp.nc)], verbose=True)
     log(f"build: {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.1f} s")
     stamp("build")
 
@@ -1992,6 +2479,11 @@ def main() -> int:
     records = phase_kernels(ocp_dev, cfg, x0s_dev, SMALL_BATCH, KERNEL_REPS)
     records[0]["shapes"] = phase_nonlinear_kernels(problems, KERNEL_REPS)
     records += phase_btridiag_kernels(ocp_dev, lm_cfg, x0s_dev, KERNEL_REPS)
+    ip_ocp, ip_cfg = flagship_ip(N=50)
+    nz2 = phase_btridiag_nz2_kernels(ip_ocp, ip_cfg, x0s_dev, KERNEL_REPS)
+    for r in records:
+        if r["name"] in nz2:
+            r["nz2"] = nz2[r["name"]]
     stamp("kernels")
     if opts.skip_main:
         log(json.dumps({"kernels": records}))
@@ -2018,16 +2510,26 @@ def main() -> int:
         phase_nonuniform_kernels(nonuniform_ms_timeopt(), nu_x0s, nu_kept, KERNEL_REPS))
     del nu_kept
     stamp("nonuniform_kernels")
+    # ---- the interior-point paths ----
+    ip_launches, ip_k3, ip_held, ip_rec, ip_solvers = phase_ip(x0s_np, IP_TRIALS, IP_SINGLE)
+    stamp("ip")
     # each count from its own path's run; K1 and K4 carry one count per path
     k1_paths = {"sqp_config1": launches["boxqp_solve"], **nl_launches, "closed_loop": cl_k1,
                 "nonuniform_open_loop": nu_ol_k1, "nonuniform_closed_loop": nu_cl_k1}
-    k4_paths = {"lm_config1": lm_launches["btridiag_factor_solve_inplace"], "closed_loop_lm": cl_k4}
+    k4_paths = {"lm_config1": lm_launches["btridiag_factor_solve_inplace"], "closed_loop_lm": cl_k4,
+                **ip_launches}
+    k3_paths = {"lm_config1_inplace_false": lm_launches["btridiag_factor_solve"], **ip_k3}
     launches = {**launches, **lm_launches, "boxqp_solve": sum(k1_paths.values()),
-                "btridiag_factor_solve_inplace": sum(k4_paths.values())}
+                "btridiag_factor_solve_inplace": sum(k4_paths.values()),
+                "btridiag_factor_solve": sum(k3_paths.values())}
     records[0]["launches_by_path"] = k1_paths
     for r in records:
         if r["name"] == "btridiag_factor_solve_inplace":
             r["launches_by_path"] = k4_paths
+        if r["name"] == "btridiag_factor_solve":
+            r["launches_by_path"] = k3_paths
+        if r["name"] in ("btridiag_factor_solve", "btridiag_factor_solve_inplace"):
+            r["held_on_paths"] = {path: errs[r["name"]] for path, errs in ip_held.items()}
     for r in records:
         r["launches"] = launches[r["name"]]
         if r["on_main_path"] and r["launches"] <= 0:
@@ -2082,6 +2584,17 @@ def main() -> int:
             prof["eager_kernels_per_sqp_iteration"] = (
                 prof["n_device_kernels"] - k1[0]["launches"]) / k1[0]["launches"]
         log(json.dumps({"profile_nonuniform": nu_prof}))
+        ip_prof = phase_profile({"config1_ip": ip_solvers["config1_ip"]}, x0s_np)
+        ip_prof.update(phase_profile(
+            {"constrained_di_ip": ip_solvers["constrained_di_ip"]}, constrained_di_x0s()))
+        for name, prof in ip_prof.items():
+            k4 = [v for k, v in prof["own_kernels"].items() if "btridiag_factor_solve" in k]
+            if len(k4) != 1:
+                raise AssertionError(f"{name}: the profiler saw {list(prof['own_kernels'])}")
+            prof["ip_iterations"] = k4[0]["launches"]
+            prof["eager_kernels_per_ip_iteration"] = (
+                prof["n_device_kernels"] - k4[0]["launches"]) / k4[0]["launches"]
+        log(json.dumps({"profile_ip": ip_prof}))
         stamp("profile")
 
     # ---- 7 result ----
@@ -2089,6 +2602,7 @@ def main() -> int:
     log(json.dumps({"lm": lm_rec}))
     log(json.dumps({"nonlinear": nl_rec}))
     log(json.dumps({"closed_loop": cl_rec}))
+    log(json.dumps({"ip": ip_rec}))
     # last: the config-4 batch by the plain backend (see its docstring)
     nu_cl_rec["plain"] = phase_nonuniform_vs_plain(*nu_cl)
     stamp("nonuniform_vs_plain")

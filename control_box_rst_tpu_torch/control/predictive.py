@@ -4,7 +4,8 @@ Counterpart of the JAX package's ``control/predictive.py``. Per control step
 the controller shifts its warm start (primal W and duals) by the
 state-proximity count of each lane, overwrites the x0 row with the measured
 state, restores pinned terminal components, solves the OCP warm-started
-(SQP, or Levenberg-Marquardt on the primal only), and keeps the UNSHIFTED
+(SQP; interior point or Levenberg-Marquardt on the primal only), and keeps
+the UNSHIFTED
 solution in the carry: the next step shifts it with the state it measures.
 
 The reference runs one plant per call under ``vmap``; here every function
@@ -39,6 +40,7 @@ from control_box_rst_tpu_torch.control.base import Controller, ControlOutput
 from control_box_rst_tpu_torch.ocp.adaptation import stage_mask_from_n
 from control_box_rst_tpu_torch.ocp.problem import Trajectory
 from control_box_rst_tpu_torch.ocp.transcribe import TranscribedOCP
+from control_box_rst_tpu_torch.solvers.ip import IPConfig, ip_solve
 from control_box_rst_tpu_torch.solvers.lm import LMConfig, lm_solve
 from control_box_rst_tpu_torch.solvers.sqp import (
     SQPConfig,
@@ -147,8 +149,10 @@ class PredictiveController(Controller):
     """MPC controller over a TranscribedOCP, for a batch of plants.
 
     ``solver``: 'sqp' (warm-started primal and duals; ``num_ocp_iterations``
-    solves per step) or 'lm' (Levenberg-Marquardt on the primal warm start;
-    the carry's duals pass through unchanged). 'ip' is not ported yet.
+    solves per step), 'ip' (the interior-point solver from the primal warm
+    start, its duals re-centred every step; the carry takes its duals, the
+    bound duals as y_box = z_uw − z_lw) or 'lm' (Levenberg-Marquardt on the
+    primal warm start; the carry's duals pass through unchanged).
     ``adaptation``: a ``GridAdaptation`` applied at the start of every step
     from the previous solve's constraint violation; ``n_active_init``: the
     initial active horizon (0: the grid's N); ``warm_start_shift=False``
@@ -168,6 +172,7 @@ class PredictiveController(Controller):
     dt: float = 0.1  # grid dt (fixed grids) / initial dt guess (variable)
     cfg: SQPConfig = None
     solver: str = "sqp"
+    ip_cfg: IPConfig = None
     lm_cfg: LMConfig = None
     num_ocp_iterations: int = 1
     warm_start_shift: bool = True
@@ -184,10 +189,6 @@ class PredictiveController(Controller):
         set_ = lambda k, v: object.__setattr__(self, k, v)
         if self.solver not in _SOLVERS:
             raise KeyError(f"unknown solver {self.solver!r}; have {list(_SOLVERS)}")
-        if self.solver == "ip":
-            raise NotImplementedError(
-                "PredictiveController(solver='ip') is not ported yet: the "
-                "interior-point solver comes with the other-solvers slice E")
         if self.num_ocp_iterations < 1:
             raise ValueError("num_ocp_iterations must be >= 1")
         device, dtype = resolve_device(self.device), resolve_dtype(self.dtype)
@@ -195,6 +196,8 @@ class PredictiveController(Controller):
         set_("dtype", dtype)
         if self.cfg is None:
             set_("cfg", SQPConfig())
+        if self.solver == "ip" and self.ip_cfg is None:
+            set_("ip_cfg", IPConfig())
         if self.solver == "lm" and self.lm_cfg is None:
             set_("lm_cfg", LMConfig())
         ocp = self.ocp.to(device=device, dtype=dtype)
@@ -286,6 +289,14 @@ class PredictiveController(Controller):
             # LM carries no duals: the carry's pass through unchanged
             W_next, traj, feas = lm_res.W, lm_res.traj, lm_res.feas_res
             objective, iterations, stat = ocp.objective_from_W(W_next), lm_res.iterations, lm_res.chi2
+            qp_iters = torch.zeros_like(iterations)
+        elif self.solver == "ip":
+            res = ip_solve(ocp, traj_init, self.ip_cfg)
+            W_next, traj, feas = res.W, res.traj, res.feas_res
+            # the bound duals in the SQP's signed-box convention (positive:
+            # pushing against the upper bound)
+            y_dyn, y_gen, y_box = res.y_dyn, res.y_gen, res.z_uw - res.z_lw
+            objective, iterations, stat = res.objective, res.iterations, res.stat_res
             qp_iters = torch.zeros_like(iterations)
         else:
             warm = SQPWarmStart(W=W, y_dyn=y_dyn, y_gen=y_gen, y_box=y_box)

@@ -20,6 +20,16 @@ handed to the port — is a dict of numpy arrays and static fields (the form
   refs:    xref [N+1,nx], uref [N,nu]
   bc:      x0 [..., nx], xf [nx] or None, xf_fixed [nx] or None
   mask:    stage_mask [N], or [..., N] for one active horizon per lane
+  general rows (optional): stage_con, term_con — constraint specs
+  any cost: cost_spec — a cost spec, in place of the ``cost`` keys above
+
+A cost or constraint spec (``cost_from_numpy``, ``constraint_from_numpy``)
+is a dict with ``kind``, the class name (the same in both packages), and any
+of the class's fields: arrays (``Q``, ``R``, ``Qf``, ``S``), numbers
+(``weight``, ``gamma``, ``neq``, ``nineq`` …), index tuples (``mask``),
+nested specs (``costs`` of a ``CompositeCost``, ``constraint`` of an
+``L1SoftConstraintCost``) and, for the functional and preprocessed classes,
+the port's own callables.
 
 ``mpc_carry_from_numpy`` takes the fields of an ``MPCCarry`` (W, y_dyn,
 y_gen, y_box, u_prev, n_active, feas_prev), so that both packages can be
@@ -41,6 +51,9 @@ import torch
 
 from control_box_rst_tpu_torch.control.predictive import MPCCarry
 from control_box_rst_tpu_torch.ocp import adaptation as _adaptation
+from control_box_rst_tpu_torch.ocp import constraints as _constraints
+from control_box_rst_tpu_torch.ocp import costs as _costs
+from control_box_rst_tpu_torch.ocp import preprocessor as _preprocessor
 from control_box_rst_tpu_torch.models.benchmark import (
     SerialIntegratorSystem,
     VanDerPolOscillator,
@@ -94,7 +107,9 @@ def ocp_from_numpy(spec: Mapping[str, Any], dtype=None,
     integral = bool(spec.get("cost_integral", False))
     lsq_form = bool(spec.get("lsq_form", False))
     cost_name = spec.get("cost", "quadratic")
-    if cost_name == "minimum_time":
+    if spec.get("cost_spec") is not None:
+        cost = cost_from_numpy(spec["cost_spec"], dtype, device)
+    elif cost_name == "minimum_time":
         cost = MinimumTime(weight=float(spec.get("weight", 1.0)),
                            integral=integral, lsq_form=lsq_form)
     elif cost_name == "quadratic":
@@ -109,8 +124,11 @@ def ocp_from_numpy(spec: Mapping[str, Any], dtype=None,
         x_lb=t("x_lb"), x_ub=t("x_ub"), u_lb=t("u_lb"), u_ub=t("u_ub"),
         dt_lb=t("dt_lb"), dt_ub=t("dt_ub"),
     )
+    con = lambda key: (None if spec.get(key) is None
+                       else constraint_from_numpy(spec[key], dtype, device))
     return TranscribedOCP(
         grid=grid, system=system, cost=cost, bounds=bounds,
+        stage_con=con("stage_con"), term_con=con("term_con"),
         bc=BoundaryConditions(x0=t("x0"), xf=t("xf"), xf_fixed=t("xf_fixed")),
         refs=References(xref=t("xref"), uref=t("uref")),
         stage_mask=t("stage_mask"),
@@ -172,3 +190,62 @@ def adaptation_from_numpy(d: Mapping[str, Any]) -> _adaptation.GridAdaptation:
     cls = _ADAPTATIONS[kind]
     return cls(**{f.name: type(f.default)(np.asarray(d[f.name]).item())
                   for f in dataclasses.fields(cls) if f.name in d})
+
+
+_COSTS = {cls.__name__: cls for cls in (
+    _costs.StageCost, _costs.QuadraticFormCost, _costs.QuadraticFinalStateCost,
+    _costs.QuadraticStateCost, _costs.QuadraticControlCost, _costs.MinimumTime,
+    _costs.MinimumTimeRegularized, _costs.MinTimeQuadratic,
+    _costs.MinTimeQuadraticGainScheduled, _costs.L1SoftConstraintCost,
+    _costs.CompositeCost, _preprocessor.PreprocessedStageCost,
+)}
+_CONSTRAINTS = {cls.__name__: cls for cls in (
+    _constraints.StageConstraint, _constraints.FunctionalStageConstraint,
+    _constraints.TerminalConstraint, _constraints.TerminalBall,
+    _constraints.TerminalEquality, _constraints.TerminalPartialEquality,
+    _preprocessor.PreprocessedStageConstraint,
+)}
+
+
+def _fields_from_numpy(cls, d: Mapping[str, Any], dtype, device) -> dict:
+    """The fields of ``cls`` that ``d`` names: arrays of one dim or more
+    become tensors, 0-d arrays numbers, tuples and lists of numbers index
+    tuples, nested specs objects; anything else (callables, flags) is taken
+    as it is."""
+    out = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in d or d[f.name] is None:
+            continue
+        v = d[f.name]
+        if f.name == "costs":
+            v = tuple(cost_from_numpy(c, dtype, device) for c in v)
+        elif f.name == "constraint":
+            v = constraint_from_numpy(v, dtype, device)
+        elif isinstance(v, (list, tuple)):
+            v = tuple(int(i) for i in v)
+        elif isinstance(v, np.ndarray) or hasattr(v, "__array__"):
+            a = np.asarray(v)
+            v = _tensor(a, dtype, device) if a.ndim else a.item()
+        out[f.name] = v
+    return out
+
+
+def cost_from_numpy(d: Mapping[str, Any], dtype=None, device=None) -> _costs.StageCost:
+    """A stage cost from ``kind`` (the class name) and its fields."""
+    kind = d["kind"]
+    if kind not in _COSTS:
+        raise KeyError(f"unknown cost {kind!r}; have {sorted(_COSTS)}")
+    cls = _COSTS[kind]
+    return cls(**_fields_from_numpy(cls, d, dtype, device))
+
+
+def constraint_from_numpy(d: Mapping[str, Any], dtype=None, device=None):
+    """A stage or terminal constraint from ``kind`` (the class name) and its
+    fields (``TerminalBall``: S, gamma; ``TerminalEquality``: neq;
+    ``TerminalPartialEquality``: mask, neq; the functional class: its
+    callables and row counts)."""
+    kind = d["kind"]
+    if kind not in _CONSTRAINTS:
+        raise KeyError(f"unknown constraint {kind!r}; have {sorted(_CONSTRAINTS)}")
+    cls = _CONSTRAINTS[kind]
+    return cls(**_fields_from_numpy(cls, d, dtype, device))

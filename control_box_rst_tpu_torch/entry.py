@@ -7,6 +7,11 @@ flagship(N)  → (ocp, cfg): the config-1 OCP — H=N double integrator,
                dt pinned at 0.1 — with its solver settings.
 flagship_lm(N) → (ocp, LMConfig): the same OCP with the settings of the
                Levenberg-Marquardt backend.
+flagship_ip(N) → (ocp, IPConfig): the same OCP with the float32 settings of
+               the interior-point backend.
+constrained_di(N) → (ocp, SQPConfig, LMConfig, IPConfig): the double
+               integrator with the stage row x₂ ≥ −0.9 and the terminal
+               equality x_N = 0 (general rows, ng = 2), |u| ≤ 1, dt 0.25.
 vdp_ms(N)    → (ocp, cfg): config 2 — Van der Pol, multiple shooting (RK4),
                |u| ≤ 1, dt pinned at 0.1; the nonlinear production
                configuration (the SQP outer loop runs real iterations).
@@ -23,6 +28,8 @@ rollouts(N)  → (controller, plant, T_steps, dt): config 5 — the config-1
                OCP under a PredictiveController against the simulated
                double integrator (RK4, 4 substeps, no noise), 20 steps of
                0.1; ``parallel.make_batched_closed_loop`` takes it.
+rollouts_ip(N) → the same with the interior-point controller
+               (``flagship_ip``'s settings).
 entry()      → (fn, example_args): the batched MPC solve on that config.
 """
 from __future__ import annotations
@@ -30,6 +37,14 @@ from __future__ import annotations
 import torch
 
 from control_box_rst_tpu_torch.utils.precision import resolve_device, resolve_dtype
+
+
+# float32 interior-point settings, picked before the first chip run: the first
+# candidate under which the JAX package's float32 solve and the port's own
+# float32 solve of the first 64 lanes both converge (>= 0.99) and both stay
+# within 1e-3 of the float64 oracle (tools/ip_calibration.py; PERF.md §2)
+IP_F32_CONFIG1 = dict(tol=7e-6, max_iter=80)
+IP_F32_CONSTRAINED_DI = dict(tol=1e-5, max_iter=200)
 
 
 def flagship(N: int = 50, dtype=None, device=None):
@@ -80,6 +95,51 @@ def flagship_lm(N: int = 50, dtype=None, device=None):
 
     ocp, _ = flagship(N, dtype=dtype, device=device)
     return ocp, LMConfig(max_iter=60)
+
+
+def flagship_ip(N: int = 50, dtype=None, device=None):
+    """The config-1 OCP of ``flagship`` with the interior-point backend's
+    float32 settings (``parallel.make_batched_ip_solver`` takes both):
+    ``IP_F32_CONFIG1``."""
+    from control_box_rst_tpu_torch.solvers import IPConfig
+
+    ocp, _ = flagship(N, dtype=dtype, device=device)
+    return ocp, IPConfig(**IP_F32_CONFIG1)
+
+
+def constrained_di(N: int = 25, dtype=None, device=None):
+    """The constrained double integrator of the JAX package's IP test
+    (``tests/test_ip_solver.py:37-51,73-92``): Crank–Nicolson finite
+    differences, N intervals of dt 0.25 (pinned; the initial guess carries
+    it: ``dt_init=0.25``), Q = I, R = 0.1, no terminal cost, |u| ≤ 1, the
+    stage row x₂ ≥ −0.9 and the terminal equality x_N = 0 as general rows
+    (ng = 2, nz = 4, nc = 2). Returns (ocp, SQPConfig, LMConfig, IPConfig);
+    SQP takes the non-fused ADMM (general rows), LM and IP the
+    block-tridiagonal kernel. ``dtype`` / ``device`` as in ``flagship``."""
+    from control_box_rst_tpu_torch.models import DoubleIntegratorContinuous
+    from control_box_rst_tpu_torch.ocp import (
+        Bounds,
+        QuadraticFormCost,
+        finite_differences_grid,
+        transcribe,
+    )
+    from control_box_rst_tpu_torch.ocp.constraints import (
+        FunctionalStageConstraint,
+        terminal_equality,
+    )
+    from control_box_rst_tpu_torch.solvers import IPConfig, LMConfig, SQPConfig
+
+    kw = dict(dtype=resolve_dtype(dtype), device=resolve_device(device))
+    ocp = transcribe(
+        DoubleIntegratorContinuous(), finite_differences_grid(N),
+        QuadraticFormCost(Q=torch.eye(2, **kw), R=0.1 * torch.eye(1, **kw)),
+        bounds=Bounds.unbounded(2, 1, **kw).with_u(-1.0, 1.0),
+        x0=torch.tensor([2.0, 0.0], **kw),
+        stage_con=FunctionalStageConstraint(
+            nineq=1, ineq_fn=lambda x, u: -x[..., 1:2] - 0.9),  # x₂ ≥ −0.9
+        term_con=terminal_equality(2), **kw,
+    )
+    return ocp, SQPConfig(max_iter=30), LMConfig(max_iter=60), IPConfig(**IP_F32_CONSTRAINED_DI)
 
 
 def vdp_ms(N: int = 20, dtype=None, device=None):
@@ -226,6 +286,14 @@ def rollouts(N: int = 50, dtype=None, device=None):
         nx=2, nu=1, ocp=ocp, dt=0.1, cfg=cfg, device=device, dtype=dtype)
     plant = SimulatedPlant(system=DoubleIntegratorContinuous())
     return ctrl, plant, 20, 0.1
+
+
+def rollouts_ip(N: int = 50, dtype=None, device=None):
+    """Config 5 under the interior-point controller: ``rollouts``' OCP, plant
+    and steps, ``solver='ip'`` with ``flagship_ip``'s settings."""
+    ctrl, plant, T, dt = rollouts(N, dtype=dtype, device=device)
+    _, ip_cfg = flagship_ip(N, dtype=dtype, device=device)
+    return ctrl.replace(solver="ip", ip_cfg=ip_cfg), plant, T, dt
 
 
 def entry(device=None):

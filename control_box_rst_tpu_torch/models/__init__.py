@@ -1,4 +1,4 @@
-from control_box_rst_tpu_torch.models.base import SystemDynamics
+from control_box_rst_tpu_torch.models.base import FunctionalDynamics, SystemDynamics
 from control_box_rst_tpu_torch.models.benchmark import (
     DoubleIntegratorContinuous,
     SerialIntegratorSystem,
@@ -6,5 +6,5 @@ from control_box_rst_tpu_torch.models.benchmark import (
 )
 from control_box_rst_tpu_torch.models.filters import OneStepPredictor
 
-__all__ = ["SystemDynamics", "SerialIntegratorSystem", "DoubleIntegratorContinuous",
+__all__ = ["SystemDynamics", "FunctionalDynamics", "SerialIntegratorSystem", "DoubleIntegratorContinuous",
            "VanDerPolOscillator", "OneStepPredictor"]

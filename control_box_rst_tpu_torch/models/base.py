@@ -7,7 +7,7 @@ Linearization is exact (``torch.func.jacfwd``) for one unbatched point.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
 
@@ -44,3 +44,14 @@ class SystemDynamics:
     @property
     def is_linear(self) -> bool:
         return False
+
+
+@plain_dataclass
+class FunctionalDynamics(SystemDynamics):
+    """A pure function ``fn(x, u) -> xdot`` (or ``x_next``) wrapped as a
+    system; ``fn`` takes and returns batch-first tensors like any model."""
+
+    fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = None
+
+    def __call__(self, x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+        return self.fn(x, u)

@@ -1,9 +1,34 @@
+from control_box_rst_tpu_torch.ocp.constraints import (
+    FunctionalStageConstraint,
+    StageConstraint,
+    TerminalBall,
+    TerminalConstraint,
+    TerminalEquality,
+    TerminalPartialEquality,
+    terminal_ball_from_cost,
+    terminal_equality,
+    terminal_partial_equality,
+)
 from control_box_rst_tpu_torch.ocp.costs import (
     CompositeCost,
+    L1SoftConstraintCost,
     MinimumTime,
+    MinimumTimeRegularized,
+    MinTimeQuadratic,
+    MinTimeQuadraticControls,
+    MinTimeQuadraticGainScheduled,
+    MinTimeQuadraticStates,
+    QuadraticControlCost,
     QuadraticFinalStateCost,
     QuadraticFormCost,
+    QuadraticStateCost,
     StageCost,
+    riccati_terminal_cost,
+)
+from control_box_rst_tpu_torch.ocp.preprocessor import (
+    PreprocessedStageConstraint,
+    PreprocessedStageCost,
+    StagePreprocessor,
 )
 from control_box_rst_tpu_torch.ocp.grids import (
     Grid,
@@ -34,7 +59,13 @@ from control_box_rst_tpu_torch.ocp.adaptation import (
 
 __all__ = [
     "StageCost", "QuadraticFormCost", "QuadraticFinalStateCost", "CompositeCost",
-    "MinimumTime",
+    "MinimumTime", "QuadraticStateCost", "QuadraticControlCost", "MinimumTimeRegularized",
+    "MinTimeQuadratic", "MinTimeQuadraticControls", "MinTimeQuadraticStates",
+    "MinTimeQuadraticGainScheduled", "L1SoftConstraintCost", "riccati_terminal_cost",
+    "StageConstraint", "FunctionalStageConstraint", "TerminalConstraint", "TerminalBall",
+    "terminal_ball_from_cost", "TerminalEquality", "terminal_equality",
+    "TerminalPartialEquality", "terminal_partial_equality",
+    "StagePreprocessor", "PreprocessedStageCost", "PreprocessedStageConstraint",
     "Grid", "finite_differences_grid", "finite_differences_variable_grid",
     "multiple_shooting_grid", "multiple_shooting_variable_grid",
     "non_uniform_fd_variable_grid", "non_uniform_multiple_shooting_variable_grid",

@@ -12,8 +12,8 @@ The least-squares form for the Gauss-Newton / Levenberg-Marquardt solver is
 matrix square roots it needs are taken once, when the cost object is built
 (on the host, in float64), not per evaluation.
 
-So far the port carries the quadratic tracking costs of configs 1 and 2 and
-the time-optimal objective of config 3.
+``riccati_terminal_cost`` needs the algebraic Riccati solvers of
+``ops/matrix_eq.py``, which the port does not carry yet: it raises by name.
 """
 from __future__ import annotations
 
@@ -111,6 +111,40 @@ class QuadraticFinalStateCost(StageCost):
 
 
 @plain_dataclass
+class QuadraticStateCost(StageCost):
+    """(x-xref)'Q(x-xref)."""
+
+    quadratic: bool = True
+    Q: torch.Tensor = None
+
+    def __post_init__(self):
+        _set_sqrt(self, _Qs=self.Q)
+
+    def stage(self, x, u, dt, xref, uref):
+        return _quad(x - xref, self.Q)
+
+    def stage_residual(self, x, u, dt, xref, uref):
+        return mv_small(self._Qs, x - xref)
+
+
+@plain_dataclass
+class QuadraticControlCost(StageCost):
+    """(u-uref)'R(u-uref)."""
+
+    quadratic: bool = True
+    R: torch.Tensor = None
+
+    def __post_init__(self):
+        _set_sqrt(self, _Rs=self.R)
+
+    def stage(self, x, u, dt, xref, uref):
+        return _quad(u - uref, self.R)
+
+    def stage_residual(self, x, u, dt, xref, uref):
+        return mv_small(self._Rs, u - uref)
+
+
+@plain_dataclass
 class MinimumTime(StageCost):
     """Time-optimal objective: total time Σ dt_k (weight 1 per interval).
 
@@ -132,6 +166,99 @@ class MinimumTime(StageCost):
         if self.lsq_form:
             return math.sqrt(self.weight) * dt[..., None]
         return super().stage_residual(x, u, dt, xref, uref)
+
+
+@plain_dataclass
+class MinimumTimeRegularized(StageCost):
+    """w·Σdt + reg·Σdt²."""
+
+    weight: float = 1.0
+    reg: float = 1e-3
+
+    def stage(self, x, u, dt, xref, uref):
+        return self.weight * dt + self.reg * dt * dt
+
+
+@plain_dataclass
+class MinTimeQuadratic(StageCost):
+    """Blend: time_weight·Σdt + a quadratic tracking term (Q and R each
+    optional)."""
+
+    time_weight: float = 1.0
+    Q: torch.Tensor = None
+    R: torch.Tensor = None
+
+    def stage(self, x, u, dt, xref, uref):
+        c = self.time_weight * dt
+        if self.Q is not None:
+            c = c + _quad(x - xref, self.Q)
+        if self.R is not None:
+            c = c + _quad(u - uref, self.R)
+        return c
+
+
+def MinTimeQuadraticControls(time_weight=1.0, R=None) -> MinTimeQuadratic:
+    """Time + control effort: ``MinTimeQuadratic`` without the state term."""
+    return MinTimeQuadratic(time_weight=time_weight, Q=None, R=R)
+
+
+def MinTimeQuadraticStates(time_weight=1.0, Q=None) -> MinTimeQuadratic:
+    """Time + state tracking: ``MinTimeQuadratic`` without the control term."""
+    return MinTimeQuadratic(time_weight=time_weight, Q=Q, R=None)
+
+
+@plain_dataclass
+class MinTimeQuadraticGainScheduled(StageCost):
+    """Gain-scheduled blend: the quadratic weights fade in as ‖x − xref‖
+    shrinks below ``radius``, through a sigmoid of the squared distance
+    (smooth everywhere, unlike the distance itself). Not convex: solvers
+    clamp its Hessian blocks to PSD."""
+
+    time_weight: float = 1.0
+    Q: torch.Tensor = None
+    R: torch.Tensor = None
+    radius: float = 1.0
+    sharpness: float = 10.0
+    convex: bool = False
+
+    def stage(self, x, u, dt, xref, uref):
+        dx = x - xref
+        gain = torch.sigmoid(
+            self.sharpness * (1.0 - (dx * dx).sum(dim=-1) / (self.radius ** 2)))
+        c = self.time_weight * dt
+        if self.Q is not None:
+            c = c + gain * _quad(dx, self.Q)
+        if self.R is not None and uref is not None:
+            c = c + gain * _quad(u - uref, self.R)
+        return c
+
+
+def riccati_terminal_cost(system, xref, uref, Q, R, dt=None):
+    """Qf from the algebraic Riccati equation at (xref, uref): not ported."""
+    raise NotImplementedError(
+        "riccati_terminal_cost needs ops/matrix_eq.py (the CARE/DARE solvers), "
+        "which is not ported yet (periphery slice F)")
+
+
+@plain_dataclass
+class L1SoftConstraintCost(StageCost):
+    """Exact-penalty (L1) soft constraints as a cost term: a stage
+    constraint's violations enter the objective as weight·‖·‖₁ — inequality
+    rows weight·max(0, g), equality rows weight·|h|."""
+
+    constraint: object = None  # a StageConstraint
+    weight: float = 1.0
+
+    def stage(self, x, u, dt, xref, uref):
+        c = self.constraint
+        total = torch.zeros_like(x[..., 0])
+        if c.nineq:
+            g = c.ineq(x, u, dt, xref, uref)
+            total = total + self.weight * torch.maximum(torch.zeros_like(g), g).sum(dim=-1)
+        if c.neq:
+            h = c.eq(x, u, dt, xref, uref)
+            total = total + self.weight * h.abs().sum(dim=-1)
+        return total
 
 
 @plain_dataclass

@@ -28,12 +28,18 @@ is [N] (every lane the same horizon) or [..., N], one horizon per lane (grid
 adaptation, ``ocp/adaptation.py``); a per-lane mask batches every evaluation
 over its lanes, whether W carries them or not.
 
+General rows: a ``StageConstraint`` gives every interval k < N its rows
+(multiplied by the stage mask, per lane where the mask is), a
+``TerminalConstraint`` gives stage N its rows; both are padded to the common
+width ng = max(ng_stage, ng_term). Equality rows have bounds [0, 0],
+inequality rows (−inf, 0], padding rows (−inf, +inf).
+
 Ported so far: finite-difference and multiple-shooting grids, with dt pinned,
 with one dt tied across the intervals (tie rows dt_{k+1} − dt_k = 0 for
 k < N−1), or with a free dt per interval (no tie rows, nc = nx), left-sum /
-trapezoidal cost integration and no general rows (``ng = 0``). Move blocking,
-the schemes and integrators and the constraint objects that later slices
-bring are refused at construction.
+trapezoidal cost integration, and general rows. Move blocking and the
+schemes, integrators and cost integrations that later slices bring are
+refused at construction.
 """
 from __future__ import annotations
 
@@ -108,11 +114,6 @@ class TranscribedOCP:
             raise NotImplementedError(
                 "move blocking is not ported yet (other-grids slice)"
             )
-        if self.stage_con is not None or self.term_con is not None:
-            raise NotImplementedError(
-                "stage/terminal constraint rows (ng > 0) are not ported yet "
-                "(other-solvers slice)"
-            )
         if self.cost.integral and g.cost_integration not in _COST_INTEGRATIONS:
             raise NotImplementedError(
                 f"cost integration {g.cost_integration!r} is not ported yet; "
@@ -147,8 +148,19 @@ class TranscribedOCP:
         return self.nx + self.n_tie
 
     @property
+    def ng_stage(self) -> int:
+        sc = self.stage_con
+        return 0 if sc is None else sc.neq + sc.nineq
+
+    @property
+    def ng_term(self) -> int:
+        tc = self.term_con
+        return 0 if tc is None else tc.neq + tc.nineq
+
+    @property
     def ng(self) -> int:
-        return 0
+        """General rows per stage: stage rows at k < N, terminal rows at N."""
+        return max(self.ng_stage, self.ng_term)
 
     @property
     def per_lane_mask(self) -> bool:
@@ -329,14 +341,79 @@ class TranscribedOCP:
         )
 
     # ---------------- general rows ----------------
+    def _padded(self, parts, like):
+        """Rows [..., ng]: ``parts`` concatenated, zero rows appended."""
+        rows = torch.cat(parts, dim=-1) if parts else like[..., :0]
+        pad = self.ng - rows.shape[-1]
+        if pad:
+            rows = torch.cat([rows, rows.new_zeros(rows.shape[:-1] + (pad,))], dim=-1)
+        return rows
+
+    def stage_rows(self, w, m, xref, uref):
+        """Stage-constraint rows of stages w [..., nz] with stage-mask
+        entries m [...] (equality rows first), padded to ng: [..., ng]."""
+        x, u, dt = self.split_w(w, self.nx, self.nu)
+        sc, parts = self.stage_con, []
+        if sc is not None:
+            if sc.neq:
+                parts.append(m[..., None] * sc.eq(x, u, dt, xref, uref))
+            if sc.nineq:
+                parts.append(m[..., None] * sc.ineq(x, u, dt, xref, uref))
+        return self._padded(parts, x)
+
+    def terminal_rows(self, wN):
+        """Terminal-constraint rows of stage N, wN [..., nz] → [..., ng]."""
+        x = wN[..., : self.nx]
+        tc, parts, xref = self.term_con, [], self.refs.xref[-1]
+        if tc is not None:
+            if tc.neq:
+                parts.append(tc.eq(x, xref))
+            if tc.nineq:
+                parts.append(tc.ineq(x, xref))
+        return self._padded(parts, x)
+
+    def _row_bounds(self, con):
+        neq, nineq = (0, 0) if con is None else (con.neq, con.nineq)
+        inf = float("inf")
+        pad = self.ng - neq - nineq
+        return ([0.0] * neq + [-inf] * nineq + [-inf] * pad,
+                [0.0] * neq + [0.0] * nineq + [inf] * pad)
+
+    def general_row_bounds(self):
+        """rl, ru [N+1, ng]: the same for every lane and every iterate."""
+        ref = self.stage_mask
+        (sl, su), (tl, tu) = self._row_bounds(self.stage_con), self._row_bounds(self.term_con)
+        rows = lambda s, t_: torch.tensor(
+            [s] * self.N + [t_], dtype=ref.dtype, device=ref.device).reshape(self.N + 1, self.ng)
+        return rows(sl, tl), rows(su, tu)
+
     def general_rows(self, W: torch.Tensor):
-        """Values r [..., N+1, ng] with bounds rl, ru — empty for ng = 0."""
-        z = W.new_zeros(W.shape[:-1] + (0,))
-        return z, z, z
+        """Values r [..., N+1, ng] with bounds rl, ru [N+1, ng]: stage rows
+        at k < N (masked by the stage mask), terminal rows at k = N."""
+        if self.ng == 0:
+            z = W.new_zeros(W.shape[:-1] + (0,))
+            return z, z, z
+        W = self.with_mask_lanes(W)
+        refs = self.refs
+        r_stage = self.stage_rows(W[..., :-1, :], self.stage_mask, refs.xref[:-1], refs.uref)
+        r_term = self.terminal_rows(W[..., -1, :])
+        rl, ru = self.general_row_bounds()
+        return torch.cat([r_stage, r_term[..., None, :]], dim=-2), rl, ru
 
     def general_row_jacobians(self, W: torch.Tensor) -> torch.Tensor:
-        """G [..., N+1, ng, nz] — empty for ng = 0."""
-        return W.new_zeros(W.shape[:-1] + (0, self.nz))
+        """G [..., N+1, ng, nz], exact: the rows of stage k depend on w_k
+        alone, so one forward-mode pass per column j of w (tangent e_j at
+        every stage and lane) gives column j of every stage's block."""
+        if self.ng == 0:
+            return W.new_zeros(W.shape[:-1] + (0, self.nz))
+        W = self.with_mask_lanes(W)
+        rows = lambda V: self.general_rows(V)[0]
+        cols = []
+        for j in range(self.nz):
+            tangent = torch.zeros_like(W)
+            tangent[..., j] = 1.0
+            cols.append(torch.func.jvp(rows, (W,), (tangent,))[1])
+        return torch.stack(cols, dim=-1).to(W.dtype)
 
     # ---------------- structural invariants ----------------
     @property

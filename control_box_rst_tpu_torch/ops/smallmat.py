@@ -104,3 +104,12 @@ def mv_small(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 def mv_small_t(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Aᵀ @ x: [..., k, m] x [..., k] -> [..., m]."""
     return (A * x[..., :, None]).sum(dim=-2)
+
+
+def inv_spd_small(A: torch.Tensor) -> torch.Tensor:
+    """Inverse of small SPD A via the unrolled Cholesky factor:
+    A⁻¹ = L⁻ᵀ L⁻¹ = XᵀX with X = L⁻¹."""
+    n = A.shape[-1]
+    eye = torch.eye(n, dtype=A.dtype, device=A.device).expand(A.shape)
+    X = solve_lower_mat(chol_small(A), eye)
+    return mm_small_tn(X, X)

@@ -16,6 +16,7 @@ from control_box_rst_tpu_torch.ocp.problem import Trajectory
 from control_box_rst_tpu_torch.ocp.transcribe import TranscribedOCP
 from control_box_rst_tpu_torch.sim.closed_loop import ClosedLoopResult, run_closed_loop
 from control_box_rst_tpu_torch.sim.plant import SimulatedPlant
+from control_box_rst_tpu_torch.solvers.ip import IPConfig, ip_solve
 from control_box_rst_tpu_torch.solvers.lm import LMConfig, lm_solve
 from control_box_rst_tpu_torch.solvers.sqp import (
     SQPConfig,
@@ -75,6 +76,25 @@ def make_batched_solver(
     return solve
 
 
+def _from_straight_line(ocp: TranscribedOCP, dt_init: float, device, dtype, run):
+    """fn x0s [B, nx] → ``run(o, traj0)``: the OCP moved to ``device`` /
+    ``dtype`` once, here; each call sets x0 per lane and starts from the
+    straight line to the target (``make_batched_lm_solver``,
+    ``make_batched_ip_solver``)."""
+    device = resolve_device(device)
+    dtype = resolve_dtype(dtype)
+    ocp = ocp.to(device=device, dtype=dtype)
+    N, nu = ocp.N, ocp.nu
+    xf = ocp.bc.xf if ocp.bc.xf is not None else ocp.refs.xref[-1]
+
+    def solve(x0s):
+        x0s = torch.as_tensor(x0s).to(device=device, dtype=dtype)
+        o = ocp.replace(bc=ocp.bc.replace(x0=x0s))
+        return run(o, Trajectory.linear_interp(x0s, xf, N, nu, dt_init))
+
+    return solve
+
+
 def make_batched_lm_solver(
     ocp: TranscribedOCP,
     cfg: Optional[LMConfig] = None,
@@ -90,21 +110,37 @@ def make_batched_lm_solver(
     selects which of the two block-tridiagonal kernels solves the linear
     system of an iteration on the card (``ops/cuda/btridiag_kernel.py``);
     the answer does not depend on it."""
-    device = resolve_device(device)
-    dtype = resolve_dtype(dtype)
     cfg = cfg or LMConfig()
-    ocp = ocp.to(device=device, dtype=dtype)
-    N, nu = ocp.N, ocp.nu
-    xf = ocp.bc.xf if ocp.bc.xf is not None else ocp.refs.xref[-1]
 
-    def solve(x0s):
-        x0s = torch.as_tensor(x0s).to(device=device, dtype=dtype)
-        o = ocp.replace(bc=ocp.bc.replace(x0=x0s))
-        traj0 = Trajectory.linear_interp(x0s, xf, N, nu, dt_init)
+    def run(o, traj0):
         res = lm_solve(o, traj0, cfg, inplace=inplace)
         return res.traj.U, res.chi2, res.status, res.iterations, res.feas_res
 
-    return solve
+    return _from_straight_line(ocp, dt_init, device, dtype, run)
+
+
+def make_batched_ip_solver(
+    ocp: TranscribedOCP,
+    cfg: Optional[IPConfig] = None,
+    dt_init: float = 0.1,
+    device=None,
+    dtype=None,
+    inplace: bool = True,
+):
+    """Returns fn x0s [B, nx] → (U [B, N, nu], objective, status, iterations):
+    the batched interior-point solve from the straight-line initial guess,
+    every lane with its own barrier parameter and iteration count (the
+    counterpart of the reference's ``jax.vmap(ip_solve)``). ``device`` and
+    ``dtype`` as in ``make_batched_solver``; ``inplace`` as in
+    ``make_batched_lm_solver`` (which block-tridiagonal kernel solves the
+    Schur system of an iteration on the card)."""
+    cfg = cfg or IPConfig()
+
+    def run(o, traj0):
+        res = ip_solve(o, traj0, cfg, inplace=inplace)
+        return res.traj.U, res.objective, res.status, res.iterations
+
+    return _from_straight_line(ocp, dt_init, device, dtype, run)
 
 
 def make_batched_closed_loop(

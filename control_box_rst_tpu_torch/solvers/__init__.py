@@ -1,3 +1,4 @@
+from control_box_rst_tpu_torch.solvers.ip import IPConfig, IPResult, ip_solve
 from control_box_rst_tpu_torch.solvers.lm import LMConfig, LMResult, lm_solve
 from control_box_rst_tpu_torch.solvers.sqp import (
     SQPConfig,
@@ -17,5 +18,5 @@ from control_box_rst_tpu_torch.solvers.stage_qp import (
 __all__ = [
     "StageQP", "QPConfig", "QPWarmStart", "QPSolution", "solve_stage_qp",
     "dense_qp_oracle", "SQPConfig", "SQPResult", "SQPWarmStart", "sqp_solve",
-    "LMConfig", "LMResult", "lm_solve",
+    "LMConfig", "LMResult", "lm_solve", "IPConfig", "IPResult", "ip_solve",
 ]

@@ -3,7 +3,8 @@
 Counterpart of the JAX package's ``solvers/lm.py``:
 
   residual r(z) = [ lsq-objective residuals ;
-                    √w_eq · c_eq ; √w_b · bound violation ]
+                    √w_eq · c_eq ; √w_ineq · general-row violation ;
+                    √w_b · bound violation ]
   H = JᵀJ + μI,  Δ = -H⁻¹ Jᵀ r,  trust-region-style μ update (ρ-gain test,
   ν-doubling on rejection), penalty weights grown by ``weight_adapt_factor``
   up to a max when the iteration stalls at an infeasible point.
@@ -23,7 +24,10 @@ condition — a lane whose condition is false is frozen whole, counter
 included, as a vmapped ``while_loop`` freezes it — and stops when no lane's
 condition holds.
 
-General rows (ng > 0) are not ported yet; the transcription refuses them.
+General rows (ng > 0) enter as two-sided hinges max(0, r − ru) +
+max(0, rl − r) of the stage rows in each interval block and of the terminal
+rows in the terminal block, weighted by √w_ineq (grown on a stall with the
+other weights); the linear system keeps its nz × nz blocks.
 """
 from __future__ import annotations
 
@@ -109,8 +113,6 @@ class LMProblem:
     its parts with the reference."""
 
     def __init__(self, ocp: TranscribedOCP, cfg: LMConfig, dtype, inplace: bool = True):
-        if ocp.ng:
-            raise NotImplementedError("general rows (ng > 0) are not ported yet")
         self.ocp, self.cfg, self.inplace = ocp, cfg, inplace
         self.free = 1.0 - ocp.fixed_mask().to(dtype)
         lb, ub = ocp.w_bounds()
@@ -125,10 +127,20 @@ class LMProblem:
         n_stage = ocp.cost.stage_residual(x, u, x.new_zeros(()), x, u).shape[-1]
         n_final = ocp.cost.final_residual(x, x).shape[-1]
         self.n_lsq = max(n_stage, n_final)
-        self.nr = self.n_lsq + ocp.nc + ocp.nz  # rows per interval block
+        self.ng = ocp.ng
+        self.nr = self.n_lsq + ocp.nc + self.ng + ocp.nz  # rows per interval block
+        if self.ng:
+            # general-row bounds: the same at every stage k < N, and at N
+            rl, ru = ocp.general_row_bounds()
+            self.rl, self.ru = rl.to(dtype), ru.to(dtype)
+
+    def _gen_viol(self, v, k):
+        """Two-sided violation of the general rows v [..., ng] of stage k
+        (``0``: any stage k < N, ``-1``: stage N)."""
+        return _hinge(v - self.ru[k]) + _hinge(self.rl[k] - v)
 
     # ---------------- residuals ----------------
-    def interval_res(self, w, w1, xref, uref, m, tie, lb, ub, free, w_eq, w_b):
+    def interval_res(self, w, w1, xref, uref, m, tie, lb, ub, free, w_eq, w_b, w_ineq):
         """Stage-blocked residual r_k(w_k, w_{k+1}) ∈ R^nr. ``w``, ``w1``
         [..., nz]; the stage data (``xref`` … ``free``) and the penalty
         weights [...] broadcast over leading dims."""
@@ -141,58 +153,64 @@ class LMProblem:
             scale = m * torch.sqrt(torch.clamp(dt, min=1e-12))
         # equality: interval rows (defect + ties)
         c = ocp.interval_residual(w, w1, m, tie)
+        parts = [scale[..., None] * r_lsq, torch.sqrt(w_eq)[..., None] * c]
+        # general rows at stage k (the two-sided hinge covers eq and ineq rows)
+        if self.ng:
+            v = ocp.stage_rows(w, m, xref, uref)
+            parts.append(torch.sqrt(w_ineq)[..., None] * self._gen_viol(v, 0))
         # box violation at stage k
         viol = _hinge(lb - w) + _hinge(w - ub)
-        return torch.cat([
-            scale[..., None] * r_lsq,
-            torch.sqrt(w_eq)[..., None] * c,
-            torch.sqrt(w_b)[..., None] * viol * free,
-        ], dim=-1)
+        parts.append(torch.sqrt(w_b)[..., None] * viol * free)
+        return torch.cat(parts, dim=-1)
 
-    def terminal_res(self, wN, w_b):
+    def terminal_res(self, wN, w_b, w_ineq):
         """Terminal block: the terminal-cost LSQ residual in the lsq slot,
-        no equality rows, the box violation of stage N."""
+        no equality rows, the terminal rows' violation, the box violation of
+        stage N."""
         ocp, N = self.ocp, self.ocp.N
         rf = _pad_last(
             ocp.cost.final_residual(wN[..., : ocp.nx], ocp.refs.xref[-1]), self.n_lsq)
+        parts = [rf, rf.new_zeros(rf.shape[:-1] + (ocp.nc,))]
+        if self.ng:
+            v = ocp.terminal_rows(wN)
+            parts.append(torch.sqrt(w_ineq)[..., None] * self._gen_viol(v, -1))
         viol = _hinge(self.lb[N] - wN) + _hinge(wN - self.ub[N])
-        return torch.cat([
-            rf, rf.new_zeros(rf.shape[:-1] + (ocp.nc,)),
-            torch.sqrt(w_b)[..., None] * viol * self.free[N],
-        ], dim=-1)
+        parts.append(torch.sqrt(w_b)[..., None] * viol * self.free[N])
+        return torch.cat(parts, dim=-1)
 
     def _stage_data(self):
         refs = self.ocp.refs
         return (refs.xref[:-1], refs.uref, self.ocp.stage_mask, self.ocp.tie_mask,
                 self.lb[:-1], self.ub[:-1], self.free[:-1])
 
-    def all_residuals(self, W, w_eq, w_b):
+    def all_residuals(self, W, w_eq, w_b, w_ineq):
         """r_int [B, N, nr], r_term [B, nr] for W [B, N+1, nz], weights [B]."""
         r_int = self.interval_res(
-            W[:, :-1], W[:, 1:], *self._stage_data(), w_eq[:, None], w_b[:, None])
-        return r_int, self.terminal_res(W[:, -1], w_b)
+            W[:, :-1], W[:, 1:], *self._stage_data(), w_eq[:, None], w_b[:, None],
+            w_ineq[:, None])
+        return r_int, self.terminal_res(W[:, -1], w_b, w_ineq)
 
-    def chi2_of(self, W, w_eq, w_b):
-        r_int, r_term = self.all_residuals(W, w_eq, w_b)
+    def chi2_of(self, W, w_eq, w_b, w_ineq):
+        r_int, r_term = self.all_residuals(W, w_eq, w_b, w_ineq)
         return (r_int ** 2).sum(dim=(-2, -1)) + (r_term ** 2).sum(dim=-1)
 
     # ---------------- Gauss-Newton system ----------------
-    def gn_system(self, W, w_eq, w_b):
+    def gn_system(self, W, w_eq, w_b, w_ineq):
         """Block-tridiagonal JᵀJ (D [B, N+1, nz, nz], O [B, N, nz, nz]) and
         Jᵀr (g [B, N+1, nz]), with χ² = rᵀr [B] of the same residuals."""
         free, N = self.free, self.ocp.N
         jac = torch.func.jacfwd(_with_value(self.interval_res), argnums=(0, 1), has_aux=True)
-        over_stages = torch.func.vmap(jac, in_dims=(0,) * 9 + (None, None))
+        over_stages = torch.func.vmap(jac, in_dims=(0,) * 9 + (None,) * 3)
         # the stage data is shared by the lanes, but for a per-lane mask
         mask_dim = 0 if self.ocp.per_lane_mask else None
         over_lanes = torch.func.vmap(
-            over_stages, in_dims=(0, 0, None, None, mask_dim) + (None,) * 4 + (0, 0))
+            over_stages, in_dims=(0, 0, None, None, mask_dim) + (None,) * 4 + (0, 0, 0))
         (J, K), r_int = over_lanes(
-            W[:, :-1], W[:, 1:], *self._stage_data(), w_eq, w_b)
+            W[:, :-1], W[:, 1:], *self._stage_data(), w_eq, w_b, w_ineq)
         J = J * free[:-1, None, :]
         K = K * free[1:, None, :]
         jac_term = torch.func.jacfwd(_with_value(self.terminal_res), has_aux=True)
-        J_term, r_term = torch.func.vmap(jac_term)(W[:, -1], w_b)
+        J_term, r_term = torch.func.vmap(jac_term)(W[:, -1], w_b, w_ineq)
         J_term = J_term * free[N][None, :]
 
         # block products as broadcast-multiply-sum (ops/smallmat.py): one
@@ -210,10 +228,16 @@ class LMProblem:
 
     # ---------------- feasibility ----------------
     def feasibility(self, W):
-        """Unweighted max of dynamics defects and box violations, [B]."""
+        """Unweighted max of dynamics defects, box violations and general-row
+        violations, [B]."""
         feas = self.ocp.interval_residuals(W).abs().amax(dim=(-2, -1))
         viol_box = (_hinge(self.lb - W) + _hinge(W - self.ub)) * self.free
-        return torch.maximum(feas, viol_box.amax(dim=(-2, -1)))
+        feas = torch.maximum(feas, viol_box.amax(dim=(-2, -1)))
+        if self.ng:
+            r, _, _ = self.ocp.general_rows(W)
+            viol = _hinge(r - self.ru) + _hinge(self.rl - r)
+            feas = torch.maximum(feas, viol.amax(dim=(-2, -1)))
+        return feas
 
     # ---------------- one iteration ----------------
     def init_state(self, W0) -> LMState:
@@ -235,7 +259,7 @@ class LMProblem:
         """The linear system of an iteration, (JᵀJ + μI) Δ = −Jᵀr, as
         (Dmu, D, O, g, χ²): the Gauss-Newton blocks with the lane's μ on the
         diagonal of D."""
-        D, O, g, chi2 = self.gn_system(s.W, s.w_eq, s.w_b)
+        D, O, g, chi2 = self.gn_system(s.W, s.w_eq, s.w_b, s.w_ineq)
         eye = torch.eye(D.shape[-1], dtype=D.dtype, device=D.device)
         return D + s.mu[:, None, None, None] * eye, D, O, g, chi2
 
@@ -246,7 +270,7 @@ class LMProblem:
         Dmu, D, O, g, chi2_old = self.damped_system(s)
         delta = -btridiag_factor_solve(Dmu, O, g, inplace=self.inplace) * self.free
         W_new = W + delta
-        chi2_new = self.chi2_of(W_new, s.w_eq, s.w_b)
+        chi2_new = self.chi2_of(W_new, s.w_eq, s.w_b, s.w_ineq)
         # ρ-gain: predicted reduction from the GN model
         pred = -(g * delta).sum(dim=(-2, -1)) - 0.5 * (
             delta * btridiag_matvec(D, O, delta)).sum(dim=(-2, -1))

@@ -130,7 +130,21 @@ def _grad_lagrangian(gm, Jm, Km, y_dyn, y_box, free):
     return gl + y_box * free
 
 
-def _mask_hessian(Hd, free, prox: float):
+def _psd_clamp(H: torch.Tensor, floor: float = 1e-8) -> torch.Tensor:
+    """H with its eigenvalues clamped to ``floor`` (symmetric blocks)."""
+    w, V = torch.linalg.eigh(H)
+    return torch.einsum("...ij,...j,...kj->...ik", V, torch.clamp(w, min=floor), V)
+
+
+def _clamps(ocp: TranscribedOCP, psd_clamp: bool) -> bool:
+    """Whether the Hessian blocks are clamped to PSD: when asked, or when
+    the cost is not convex."""
+    return bool(psd_clamp) or not getattr(ocp.cost, "convex", True)
+
+
+def _mask_hessian(Hd, free, prox: float, clamp: bool = False):
+    if clamp:
+        Hd = _psd_clamp(Hd)
     if prox:
         Hd = Hd + prox * torch.eye(Hd.shape[-1], dtype=Hd.dtype, device=Hd.device)
     return Hd * free[:, None, :] * free[:, :, None]
@@ -170,7 +184,8 @@ def hoist_structure(
     J_c, K_c, _ = ocp.interval_jacobians(W_jac)
     Hm = None
     if ocp.constant_hessian:
-        Hm = _mask_hessian(ocp.cost_hessian_blocks(W_jac), free, cfg.prox)
+        Hm = _mask_hessian(ocp.cost_hessian_blocks(W_jac), free, cfg.prox,
+                           _clamps(ocp, cfg.psd_clamp))
     return SQPHoisted(
         Jm=J_c * free[:-1, None, :], Km=K_c * free[1:, None, :], Hm=Hm
     )
@@ -186,16 +201,18 @@ def sqp_solve(
     """Solve the transcribed OCP starting from traj0, for every lane of the
     leading dims of ``ocp.bc.x0`` / ``traj0``. Runs on the device and in the
     dtype of its inputs. ``hoisted`` takes a precomputed ``hoist_structure``
-    result for this OCP and this traj0's U and dts."""
+    result for this OCP and this traj0's U and dts.
+
+    General rows (ng > 0) go into every QP as G δ ∈ [rl − r, ru − r] with
+    their duals ``y_gen`` warm-started, in the merit and in the KKT test;
+    they are evaluated at every iteration (nothing of G is hoisted), and the
+    QP takes the non-fused ADMM. The Hessian blocks are clamped to PSD when
+    ``cfg.psd_clamp`` is set or the cost is not convex."""
     check_precision_policy()
     if cfg is None:
         cfg = SQPConfig()
     N, nz, nc, ng = ocp.N, ocp.nz, ocp.nc, ocp.ng
-    if cfg.psd_clamp or not getattr(ocp.cost, "convex", True):
-        raise NotImplementedError(
-            "the PSD clamp of indefinite Hessian blocks is not ported yet "
-            "(other-solvers slice: no ported configuration has a nonconvex cost)"
-        )
+    clamp = _clamps(ocp, cfg.psd_clamp)
 
     traj0 = ocp.apply_boundary(traj0)
     # a per-lane stage mask gives the iterate its lanes
@@ -242,7 +259,7 @@ def sqp_solve(
     hoist_H = ocp.constant_hessian and not ocp.per_lane_mask
 
     def _mask_H(Hd):
-        return _mask_hessian(Hd, free, cfg.prox)
+        return _mask_hessian(Hd, free, cfg.prox, clamp)
 
     # ---- one-shot LTI fast path (single fused kernel launch) ----
     # LTI dynamics + constant quadratic Hessian + box-only constraints make
@@ -322,8 +339,14 @@ def sqp_solve(
         # ---- pin masking: zero columns of fixed variables ----
         gm = grad * free
         zero_w = torch.zeros_like(W)
+        Gm, gl, gu = empty_G, empty_g, empty_g
+        if ng:
+            r, rl, ru = ocp.general_rows(W)
+            Gm = ocp.general_row_jacobians(W) * free[:, None, :]
+            gl = torch.clamp(rl - r, min=-BIG)
+            gu = torch.clamp(ru - r, max=BIG)
         qp = StageQP(
-            Hd=Hm, g=gm, J=Jm, K=Km, c=c, G=empty_G, gl=empty_g, gu=empty_g,
+            Hd=Hm, g=gm, J=Jm, K=Km, c=c, G=Gm, gl=gl, gu=gu,
             dlb=torch.where(free > 0, lb - W, zero_w),
             dub=torch.where(free > 0, ub - W, zero_w),
         )
@@ -335,6 +358,8 @@ def sqp_solve(
 
         # ---- ℓ1 merit line search (parallel candidates) ----
         y_max = _amax2(sol.y_dyn.abs())
+        if ng:
+            y_max = torch.maximum(y_max, _amax2(sol.y_gen.abs()))
         # ν tracks the current dual scale both ways: it must dominate the
         # duals for the ℓ1 merit to be exact, but a ν stuck at the scale of
         # the FIRST iterations' duals over-penalizes residual infeasibility
@@ -367,8 +392,12 @@ def sqp_solve(
 
         # ---- KKT residuals (at current linearization, QP multipliers) ----
         grad_lag = _grad_lagrangian(gm, Jm, Km, sol.y_dyn, sol.y_box, free)
-        stat_n = _amax2((grad_lag * free).abs())
         feas_n = _amax2(c.abs())
+        if ng:
+            grad_lag = grad_lag + torch.einsum("...kri,...kr->...ki", Gm, sol.y_gen)
+            viol = torch.clamp(rl - r, min=0.0) + torch.clamp(r - ru, min=0.0)
+            feas_n = torch.maximum(feas_n, _amax2(viol))
+        stat_n = _amax2((grad_lag * free).abs())
         step_norm = _amax2(step.abs())
         converged = ((stat_n < tol_stat) & (feas_n < tol_feas)) | (
             (step_norm < 1e-12) & (feas_n < tol_feas)
@@ -380,6 +409,7 @@ def sqp_solve(
         f2 = frozen[..., None, None]
         W = torch.where(f2, W, W_new)
         y_dyn = torch.where(f2, y_dyn, sol.y_dyn)
+        y_gen = torch.where(f2, y_gen, sol.y_gen)
         y_box = torch.where(f2, y_box, sol.y_box)
         stat = torch.where(frozen, stat, stat_n)
         feas = torch.where(frozen, feas, feas_n)

@@ -6,7 +6,7 @@ QP canonical form (δ = step on stage variables w_k = [x;u;dt]):
 
   min  Σ ½ δ_kᵀ Hd_k δ_k + g_kᵀ δ_k
   s.t. J_k δ_k + K_k δ_{k+1} = -c_k          (interval rows: defects)
-       rl_k - r_k ≤ G_k δ_k ≤ ru_k - r_k     (general rows — not ported yet)
+       rl_k - r_k ≤ G_k δ_k ≤ ru_k - r_k     (general rows)
        dlb_k ≤ δ_k ≤ dub_k                   (box rows, pins have [0,0])
 
 Batch-first: every field of ``StageQP`` may carry leading dims ([B, N+1, …]);
@@ -16,14 +16,15 @@ termination; finished lanes are frozen by a mask.
 
 Backends (``QPConfig.backend``):
   'plain' — the non-fused ADMM: Python loops over torch ops, any float dtype,
-            any device. The oracle path.
+            any device, general rows included. The oracle path.
   'fused' — the whole solve in one call of ``ops.cuda.admm_kernel.boxqp_solve``
             (float32, ng = 0): the hand-written CUDA kernel for tensors on the
             card, its plain version for tensors on the CPU. Explicit dispatch
             on the batch takes the place of the reference's ``custom_vmap``.
-            Any other dtype raises: 'fused' never means the non-fused ADMM.
+            Another dtype, or general rows, raise: 'fused' never means the
+            non-fused ADMM (where the reference quietly runs it for ng > 0).
   None    — 'plain' here; ``make_batched_solver`` picks 'fused' for a float32
-            solve on the card.
+            solve without general rows on the card.
 """
 from __future__ import annotations
 
@@ -38,7 +39,7 @@ from control_box_rst_tpu_torch.ops.btridiag import (
     interval_to_stage,
 )
 from control_box_rst_tpu_torch.ops.cuda import admm_kernel
-from control_box_rst_tpu_torch.ops.smallmat import mv_small, mv_small_t
+from control_box_rst_tpu_torch.ops.smallmat import mm_small_tn, mv_small, mv_small_t
 from control_box_rst_tpu_torch.utils.precision import resolve_device, resolve_dtype
 from control_box_rst_tpu_torch.utils.tree import plain_dataclass
 
@@ -66,7 +67,8 @@ class QPConfig:
     rho: float = 0.1
     rho_eq_scale: float = 1e3
     alpha: float = 1.6
-    # None → 200 (box-only QPs; general rows are not ported yet)
+    # None → 200 for box-only QPs, 600 with general rows (an under-solved QP
+    # with general rows stalls the outer SQP loop)
     max_iter: Optional[int] = None  # total ADMM iteration budget
     # None → dtype-calibrated at solve time (f64 → 1e-8, f32 → 1e-5)
     tol: Optional[float] = None
@@ -117,10 +119,11 @@ def zero_warm_start(N: int, nz: int, nc: int, ng: int, dtype=None,
 
 
 def _no_general_rows(qp: StageQP) -> None:
+    """The fused solve (K1) has no general rows."""
     if qp.G.shape[-2] > 0:
         raise NotImplementedError(
-            "general constraint rows (ng > 0) are not ported yet "
-            "(other-solvers slice)"
+            f"backend 'fused' solves box QPs only; this QP has {qp.G.shape[-2]} "
+            "general rows (ng > 0): ask for backend='plain'"
         )
 
 
@@ -133,9 +136,12 @@ def _require_scan(cfg: "QPConfig") -> None:
 
 def _assemble_M(qp: StageQP, cfg: QPConfig, rho_eq, rho_gen, rho_box):
     """Block-tridiagonal normal matrix M = Hd + σI + Aᵀdiag(ρ)A.
-    rho_eq broadcasts against [..., N, nz, nz]; rho_box is [..., N+1, nz]."""
-    _no_general_rows(qp)
-    return admm_kernel.assemble_M(qp.Hd, qp.J, qp.K, cfg.sigma, rho_eq, rho_box)
+    rho_eq broadcasts against [..., N, nz, nz]; rho_gen is [..., N+1, ng]
+    (per general row), rho_box [..., N+1, nz]."""
+    D, O = admm_kernel.assemble_M(qp.Hd, qp.J, qp.K, cfg.sigma, rho_eq, rho_box)
+    if qp.G.shape[-2] > 0:
+        D = D + mm_small_tn(qp.G * rho_gen[..., None], qp.G)
+    return D, O
 
 
 def _round_reference_fn(cfg: QPConfig, iters: int):
@@ -194,29 +200,34 @@ def solve_stage_qp(
     Outer rounds: factor M with the current ρ, run `iters_per_round` fixed
     ADMM iterations, rescale ρ by √(pr/dr) (OSQP §5.2 rule) and refactorize —
     until tolerances or the iteration budget, per lane. Unscaled duals y are
-    carried, so ρ changes need no dual rescaling."""
-    _no_general_rows(qp)
+    carried, so ρ changes need no dual rescaling. Three row families: the
+    interval rows (ρ_eq), the general rows (ρ_eq where gl == gu, else ρ) and
+    the box rows (ρ_eq on pins)."""
     dtype, dev = qp.g.dtype, qp.g.device
-    tol = cfg.tol if cfg.tol is not None else (
-        1e-8 if dtype == torch.float64 else 1e-5)
-    max_iter = cfg.max_iter if cfg.max_iter is not None else 200
     Np1, nz = qp.g.shape[-2:]
     N = Np1 - 1
     nc = qp.c.shape[-1]
-    ng = 0
+    ng = qp.G.shape[-2]
+    tol = cfg.tol if cfg.tol is not None else (
+        1e-8 if dtype == torch.float64 else 1e-5)
+    max_iter = cfg.max_iter if cfg.max_iter is not None else (200 if ng == 0 else 600)
     lead = torch.broadcast_shapes(
         qp.g.shape[:-2], qp.c.shape[:-2], qp.dlb.shape[:-2], qp.Hd.shape[:-3],
-        qp.J.shape[:-3],
+        qp.J.shape[:-3], qp.G.shape[:-3], qp.gl.shape[:-2],
     )
     if cfg.backend not in (None, "plain", "fused"):
         raise KeyError(f"unknown backend {cfg.backend!r}; have ['plain', 'fused']")
     _require_scan(cfg)
 
     def A_mul(x):
-        return mv_small(qp.J, x[..., :-1, :]) + mv_small(qp.K, x[..., 1:, :]), x
+        Ax_g = mv_small(qp.G, x) if ng else None
+        return mv_small(qp.J, x[..., :-1, :]) + mv_small(qp.K, x[..., 1:, :]), Ax_g, x
 
-    def At_mul(vd, vb):
-        return interval_to_stage(mv_small_t(qp.J, vd), mv_small_t(qp.K, vd)) + vb
+    def At_mul(vd, vg, vb):
+        out = interval_to_stage(mv_small_t(qp.J, vd), mv_small_t(qp.K, vd))
+        if ng:
+            out = out + mv_small_t(qp.G, vg)
+        return out + vb
 
     if warm is None:
         warm = zero_warm_start(N, nz, nc, ng, dtype, dev, lead)
@@ -224,14 +235,15 @@ def solve_stage_qp(
     y_d = _expand_lead(warm.y_dyn, lead, 2)
     y_b = _expand_lead(warm.y_box, lead, 2)
     y_g = warm.y_gen
-    z_d, z_b = A_mul(x)
+    z_d, z_g, z_b = A_mul(x)
     l_dyn = u_dyn = -qp.c
     z_d = torch.minimum(torch.maximum(z_d, l_dyn), u_dyn)
     z_b = torch.minimum(torch.maximum(z_b, qp.dlb), qp.dub)
 
     if cfg.backend == "fused":
-        # the fused solve is float32 by name: a caller that asked for it never
-        # gets the non-fused ADMM in its place
+        # the fused solve is float32 and box-only by name: a caller that
+        # asked for it never gets the non-fused ADMM in its place
+        _no_general_rows(qp)
         if dtype != torch.float32:
             raise TypeError(
                 f"backend 'fused' takes float32, got {dtype}; ask for "
@@ -258,6 +270,7 @@ def solve_stage_qp(
 
     # ---- non-fused ADMM, per-lane rounds with a freeze mask ----
     box_is_eq = qp.dlb == qp.dub
+    gen_is_eq = torch.isfinite(qp.gl) & (qp.gl == qp.gu)
     n_rounds = max(1, -(-max_iter // cfg.iters_per_round))
     a = cfg.alpha
     rho = torch.full(lead, cfg.rho, dtype=dtype, device=dev)
@@ -267,6 +280,9 @@ def solve_stage_qp(
     x, z_d, z_b, y_d, y_b = (
         _expand_lead(t, lead, 2) for t in (x, z_d, z_b, y_d, y_b)
     )
+    if ng:
+        z_g = _expand_lead(torch.minimum(torch.maximum(z_g, qp.gl), qp.gu), lead, 2)
+        y_g = _expand_lead(y_g, lead, 2)
 
     def family(Ax, z, y, rho_f, lo, hi):
         v = a * Ax + (1 - a) * z
@@ -279,27 +295,37 @@ def solve_stage_qp(
         if not bool(active.any()):
             break
         rho_eq3 = (rho * cfg.rho_eq_scale)[..., None, None]
-        rho_box = torch.where(box_is_eq, rho_eq3, rho[..., None, None]).to(dtype)
-        D, O = _assemble_M(qp, cfg, rho_eq3[..., None], None, rho_box)
+        rho3 = rho[..., None, None]
+        rho_box = torch.where(box_is_eq, rho_eq3, rho3).to(dtype)
+        rho_gen = torch.where(gen_is_eq, rho_eq3, rho3).to(dtype) if ng else None
+        D, O = _assemble_M(qp, cfg, rho_eq3[..., None], rho_gen, rho_box)
         Ld, Lo = btridiag_cholesky(D, O)
-        xn, zdn, zbn, ydn, ybn = x, z_d, z_b, y_d, y_b
+        xn, zdn, zgn, zbn, ydn, ygn, ybn = x, z_d, z_g, z_b, y_d, y_g, y_b
         for _ in range(cfg.iters_per_round):
             rhs = cfg.sigma * xn - qp.g + At_mul(
-                rho_eq3 * zdn - ydn, rho_box * zbn - ybn
+                rho_eq3 * zdn - ydn, rho_gen * zgn - ygn if ng else None,
+                rho_box * zbn - ybn,
             )
             x_t = btridiag_solve(Ld, Lo, rhs)
-            Ax_d, Ax_b = A_mul(x_t)
+            Ax_d, Ax_g, Ax_b = A_mul(x_t)
             xn = a * x_t + (1 - a) * xn
             zd2, ydn = family(Ax_d, zdn, ydn, rho_eq3, l_dyn, u_dyn)
+            if ng:
+                zg2, ygn = family(Ax_g, zgn, ygn, rho_gen, qp.gl, qp.gu)
             zb2, ybn = family(Ax_b, zbn, ybn, rho_box, qp.dlb, qp.dub)
             # residuals (OSQP §3.4)
             pr_n = torch.maximum(
                 (Ax_d - zd2).abs().amax(dim=(-2, -1)),
                 (Ax_b - zb2).abs().amax(dim=(-2, -1)),
             )
-            dz = At_mul(rho_eq3 * (zd2 - zdn), rho_box * (zb2 - zbn))
+            if ng:
+                pr_n = torch.maximum(pr_n, (Ax_g - zg2).abs().amax(dim=(-2, -1)))
+            dz = At_mul(rho_eq3 * (zd2 - zdn), rho_gen * (zg2 - zgn) if ng else None,
+                        rho_box * (zb2 - zbn))
             dr_n = dz.abs().amax(dim=(-2, -1))
             zdn, zbn = zd2, zb2
+            if ng:
+                zgn = zg2
         # ρ adaptation: balance primal vs dual residual (OSQP §5.2)
         scale = torch.sqrt(pr_n / torch.clamp(dr_n, min=1e-30))
         rho_n = torch.clamp(
@@ -313,6 +339,9 @@ def solve_stage_qp(
         z_b = torch.where(a2, zbn, z_b)
         y_d = torch.where(a2, ydn, y_d)
         y_b = torch.where(a2, ybn, y_b)
+        if ng:
+            z_g = torch.where(a2, zgn, z_g)
+            y_g = torch.where(a2, ygn, y_g)
         rho = torch.where(active, rho_n, rho)
         pr = torch.where(active, pr_n, pr)
         dr = torch.where(active, dr_n, dr)
@@ -325,9 +354,10 @@ def solve_stage_qp(
 
 def dense_qp_oracle(qp: StageQP, cfg: QPConfig = None):
     """Dense oracle for one unbatched QP — FOR TESTS ONLY: materializes the
-    full KKT system and solves the *equality-only* QP (interval rows + pinned
-    box rows) densely. Box inequalities are ignored, so compare only on
-    problems where they are inactive."""
+    full KKT system and solves the *equality-only* QP densely: interval rows,
+    general rows with gl == gu (finite) and pinned box rows. Inequality
+    general rows and box inequalities are ignored, so compare only on
+    problems where they are inactive. Returns (δ [N+1, nz], y_dyn [N, nc])."""
     Np1, nz = qp.g.shape
     N = Np1 - 1
     nc = qp.c.shape[1]
@@ -342,12 +372,20 @@ def dense_qp_oracle(qp: StageQP, cfg: QPConfig = None):
         A[k * nc:(k + 1) * nc, k * nz:(k + 1) * nz] = qp.J[k]
         A[k * nc:(k + 1) * nc, (k + 1) * nz:(k + 2) * nz] = qp.K[k]
     b = (-qp.c).reshape(-1)
+    eq_rows = [(k, i) for k in range(Np1) for i in range(qp.G.shape[1])
+               if bool(torch.isfinite(qp.gl[k, i])) and bool(qp.gl[k, i] == qp.gu[k, i])]
+    if eq_rows:
+        Ag = torch.zeros((len(eq_rows), n), **dt)
+        for r, (k, i) in enumerate(eq_rows):
+            Ag[r, k * nz:(k + 1) * nz] = qp.G[k, i]
+        A = torch.cat([A, Ag])
+        b = torch.cat([b, torch.stack([qp.gl[k, i] for k, i in eq_rows])])
     pin = (qp.dlb == qp.dub).reshape(-1)
     H = H + 1e10 * torch.diag(pin.to(qp.g.dtype))
-    m = N * nc
+    m = A.shape[0]
     KKT = torch.zeros((n + m, n + m), **dt)
     KKT[:n, :n] = H + 1e-12 * torch.eye(n, **dt)
     KKT[:n, n:] = A.T
     KKT[n:, :n] = A
     sol = torch.linalg.solve(KKT, torch.cat([-g, b]))
-    return sol[:n].reshape(Np1, nz), sol[n:].reshape(N, nc)
+    return sol[:n].reshape(Np1, nz), sol[n:n + N * nc].reshape(N, nc)

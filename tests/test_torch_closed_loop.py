@@ -427,10 +427,13 @@ def test_noise_mean_and_std_in_distribution():
 
 
 def test_what_is_not_ported_raises_by_name():
+    """Observer and mesh still raise by name; ``solver='ip'`` is ported
+    (the constrained slice) and builds its default settings."""
+    from control_box_rst_tpu_torch.solvers import IPConfig
+
     ocp, cfg = entry.flagship(N=4, device="cpu")
     kw = dict(nx=2, nu=1, ocp=ocp, dt=0.1, cfg=cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice E"):
-        PredictiveController(solver="ip", **kw)
+    assert isinstance(PredictiveController(solver="ip", **kw).ip_cfg, IPConfig)
     with pytest.raises(KeyError):
         PredictiveController(solver="newton", **kw)
     with pytest.raises(NotImplementedError, match="slice F"):

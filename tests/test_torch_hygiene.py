@@ -69,7 +69,9 @@ def test_every_listed_module_exists():
         "csrc/admm_kernel.cu", "csrc/btridiag_kernel.cu", "csrc/quotient.cuh",
         "models/base.py", "models/benchmark.py",
         "ocp/problem.py", "ocp/grids.py", "ocp/costs.py", "ocp/transcribe.py",
-        "solvers/stage_qp.py", "solvers/sqp.py", "solvers/lm.py",
+        "ocp/constraints.py", "ocp/preprocessor.py",
+        "solvers/stage_qp.py", "solvers/sqp.py", "solvers/lm.py", "solvers/ip.py",
+        "solvers/simple_nlp.py",
         "parallel/sharded_solve.py", "entry.py", "convert.py",
     ):
         assert (PKG / rel).is_file(), rel

@@ -22,6 +22,14 @@ ported configurations launch: (4, 2) (configs 1 and 2) and (4, 3) (config 3,
 whose dt tie adds an interval row), the latter also at config 3's horizon
 (Kst = 21) with Hd, J, K per lane as its SQP iterations hand them over.
 
+The block-tridiagonal source is built for nz = 4 (LM's Gauss-Newton
+systems), 3 and 2 (the interior-point solver's Schur systems, nc × nc blocks
+with nc = 2: 16 lanes to a warp), and the IP paths are driven through the
+nz = 2 build: config 1 and the constrained double integrator by
+``ip_solve``, the constrained double integrator by LM through the nz = 4
+build, and the IP controller, each counting one launch per lock-step
+iteration — the per-path counts ``chip_smoke.py`` holds on the card.
+
 Skipped where there is no g++.
 """
 import ctypes
@@ -64,7 +72,7 @@ def libs(tmp_path_factory):
             ak.SOURCE, out / f"libadmm_{nz}_{nc}.so", [f"-DNZ={nz}", f"-DNC={nc}"])))
         ak.declare(admm[nz, nc], nz, nc)
     bts = {}
-    for nz in (4, 3):
+    for nz in (4, 3, 2):
         bts[nz] = ctypes.CDLL(str(build(bk.SOURCE, out / f"libbt{nz}.so", [f"-DNZ={nz}"])))
         bk.declare(bts[nz], nz)
     return admm, bts
@@ -254,8 +262,8 @@ def _spd(B, K, nz, seed=3):
     return [torch.from_numpy(a) for a in (D, O, b)]
 
 
-@pytest.mark.parametrize("nz", [4, 3])
-@pytest.mark.parametrize("shape", [(1, 1), (1, 5), (11, 7), (19, 2), (8, 13)],
+@pytest.mark.parametrize("nz", [4, 3, 2])
+@pytest.mark.parametrize("shape", [(1, 1), (1, 5), (11, 7), (19, 2), (8, 13), (17, 25)],
                          ids=lambda s: "B{}_K{}".format(*s))
 def test_btridiag_kernels_on_the_host(libs, shape, nz):
     """The shared-memory kernel (nz threads per lane) against the
@@ -306,3 +314,84 @@ def test_btridiag_shared_memory_kernel_takes_operands_as_they_are(libs, kernel, 
         keep = [0, 1, 3, 4, 5, 6, 7, 8]
         x, want = x[keep], want[keep]
     np.testing.assert_allclose(x.numpy(), want.numpy(), rtol=0, atol=5e-6)
+
+
+def _through_the_host_kernel(monkeypatch, bts):
+    """Route the solvers' block-tridiagonal calls to the host builds of K4's
+    shared-memory kernel and, for ``inplace=False``, K3's scratch kernel (the
+    wrapper's own launch code, counting as on the card)."""
+    from control_box_rst_tpu_torch.solvers import ip as ip_mod
+    from control_box_rst_tpu_torch.solvers import lm as lm_mod
+
+    def launch(D, O, b, inplace=True):
+        assert D.dtype == torch.float32
+        kernel = bk._launch_smem if inplace else bk._launch_scratch
+        return kernel(bts[D.shape[-1]], D, O, b, bk._check_args(D, O, b), 0)
+
+    monkeypatch.setattr(ip_mod, "btridiag_factor_solve", launch)
+    monkeypatch.setattr(lm_mod, "btridiag_factor_solve", launch)
+
+
+def test_ip_and_lm_paths_through_the_host_kernels(libs, monkeypatch):
+    """Launches by path, as ``chip_smoke.py`` counts them on the card: one
+    K4 launch per lock-step iteration on every path (nz = 2 for the IP
+    Schur systems, 16 lanes a warp; nz = 4 for LM), one K3 launch per
+    lock-step iteration where the IP solver is asked for ``inplace=False``,
+    and the answers as close to the plain version's as two float32 solves
+    are."""
+    from control_box_rst_tpu_torch import entry
+    from control_box_rst_tpu_torch.parallel import (
+        make_batched_closed_loop,
+        make_batched_ip_solver,
+        make_batched_lm_solver,
+    )
+
+    _, bts = libs
+    x0s1 = np.random.default_rng(0).uniform(-1.0, 1.0, (19, 2)).astype(np.float32)
+    d = np.random.default_rng(6).uniform(-2.0, 2.0, 9)
+    d[0] = 2.0
+    x0s_di = np.stack([d, np.zeros_like(d)], axis=1).astype(np.float32)
+    ocp1, cfg1 = entry.flagship_ip(N=12, device="cpu")
+    di, _, lm_cfg, ip_cfg = entry.constrained_di(device="cpu")
+    paths = {
+        "config1_ip": lambda: make_batched_ip_solver(ocp1, cfg1, device="cpu")(x0s1),
+        "constrained_di_ip": lambda: make_batched_ip_solver(
+            di, ip_cfg, dt_init=0.25, device="cpu")(x0s_di),
+        "constrained_di_ip_inplace_false": lambda: make_batched_ip_solver(
+            di, ip_cfg, dt_init=0.25, device="cpu", inplace=False)(x0s_di),
+        "constrained_di_lm": lambda: make_batched_lm_solver(
+            di, lm_cfg.replace(max_iter=40), dt_init=0.25, device="cpu")(x0s_di[:3]),
+    }
+    plain = {name: fn() for name, fn in paths.items()}
+    _through_the_host_kernel(monkeypatch, bts)
+    launches_by_path = {}
+    for name, fn in paths.items():
+        bk.reset_launch_counts()
+        out = fn()
+        k3 = name.endswith("inplace_false")
+        kernel, other = "btridiag_factor_solve", "btridiag_factor_solve_inplace"
+        if not k3:
+            kernel, other = other, kernel
+        launches_by_path[name] = bk.LAUNCHES[kernel]
+        assert bk.LAUNCHES[other] == 0
+        iters = out[3]
+        assert launches_by_path[name] == int(iters.max()) > 0, name
+        info = bk.LAUNCH_INFO[kernel]
+        nz = 4 if name.endswith("lm") else 2
+        K = (12 if name == "config1_ip" else 25) + (0 if nz == 2 else 1)
+        if k3:
+            assert info["route"] == "scratch" and info["threads_per_lane"] == 1, info
+        else:
+            assert info["route"] == "smem" and info["lanes_per_warp"] == 32 // nz, info
+            assert info["smem_bytes_per_lane"] == bk.factor_bytes_per_lane(K, nz)
+        np.testing.assert_allclose(out[0].numpy(), plain[name][0].numpy(), rtol=0, atol=2e-3)
+        np.testing.assert_array_equal(out[2].numpy(), plain[name][2].numpy())
+    # the IP controller of config 5 (N=12 here), 3 steps
+    ctrl, plant, _, dt = entry.rollouts_ip(N=12, device="cpu")
+    bk.reset_launch_counts()
+    res = make_batched_closed_loop(ctrl, plant, 3, dt, device="cpu")(x0s1[:5])
+    launches_by_path["ip_controller"] = bk.LAUNCHES["btridiag_factor_solve_inplace"]
+    lock_step = res.info["sqp_iters"].amax(dim=0)
+    assert launches_by_path["ip_controller"] == int(lock_step.sum()) > 0
+    assert bool(torch.isfinite(res.u).all()) and float(res.u.abs().max()) <= 1.0 + 1e-6
+    assert min(launches_by_path.values()) > 0

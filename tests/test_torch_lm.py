@@ -159,7 +159,8 @@ def _problem_and_point(name="flagship_N12", B=3):
     W[..., -1] = 0.1               # dt pinned
     w_eq = torch.tensor([2.0, 20.0, 2000.0], dtype=torch.float64)[:B]
     w_b = torch.tensor([2.0, 200.0, 20.0], dtype=torch.float64)[:B]
-    return prob, W, w_eq, w_b
+    w_ineq = torch.full_like(w_b, prob.cfg.weight_ineq)
+    return prob, W, w_eq, w_b, w_ineq
 
 
 def test_gn_system_is_the_normal_equations_of_the_stacked_residual():
@@ -168,12 +169,13 @@ def test_gn_system_is_the_normal_equations_of_the_stacked_residual():
     block assembly, the masking of pinned columns and the hinge derivatives."""
     from control_box_rst_tpu_torch.ops.btridiag import btridiag_dense
 
-    prob, W, w_eq, w_b = _problem_and_point()
-    D, O, g, chi2 = prob.gn_system(W, w_eq, w_b)
+    prob, W, w_eq, w_b, w_ineq = _problem_and_point()
+    D, O, g, chi2 = prob.gn_system(W, w_eq, w_b, w_ineq)
     n = W.shape[1] * W.shape[2]
     for i in range(W.shape[0]):
         def stacked(w):
-            r_int, r_term = prob.all_residuals(w[None], w_eq[i:i + 1], w_b[i:i + 1])
+            r_int, r_term = prob.all_residuals(
+                w[None], w_eq[i:i + 1], w_b[i:i + 1], w_ineq[i:i + 1])
             return torch.cat([r_int.reshape(-1), r_term.reshape(-1)])
 
         r = stacked(W[i])
@@ -188,9 +190,9 @@ def test_gn_system_is_the_normal_equations_of_the_stacked_residual():
 
 
 def test_residual_layout_and_chi2():
-    prob, W, w_eq, w_b = _problem_and_point()
+    prob, W, w_eq, w_b, w_ineq = _problem_and_point()
     ocp = prob.ocp
-    r_int, r_term = prob.all_residuals(W, w_eq, w_b)
+    r_int, r_term = prob.all_residuals(W, w_eq, w_b, w_ineq)
     assert prob.n_lsq == 3 and prob.nr == 3 + ocp.nc + ocp.nz
     assert r_int.shape == (3, ocp.N, prob.nr) and r_term.shape == (3, prob.nr)
     # terminal block: padded terminal-cost residual, no equality rows
@@ -202,21 +204,23 @@ def test_residual_layout_and_chi2():
     assert bool((r_int[:, 0, 3 + ocp.nc:3 + ocp.nc + ocp.nx] == 0).all())
     assert bool((r_int[..., -1] == 0).all())
     np.testing.assert_allclose(
-        to_np(prob.chi2_of(W, w_eq, w_b)),
+        to_np(prob.chi2_of(W, w_eq, w_b, w_ineq)),
         to_np((r_int ** 2).sum((1, 2)) + (r_term ** 2).sum(1)), rtol=1e-14)
 
 
 def test_general_rows_are_refused():
+    """General rows were refused here until the constrained slice; now the
+    LM problem takes them: every residual block grows by ng hinge rows
+    (tests/test_torch_general_rows.py holds their values against the JAX
+    LM), and a problem without them keeps its rows."""
+    from control_box_rst_tpu_torch import entry
+
     prob, *_ = _problem_and_point()
-
-    class WithRows:
-        ng = 2
-
-        def fixed_mask(self):
-            raise AssertionError("must refuse before touching the OCP")
-
-    with pytest.raises(NotImplementedError):
-        LMProblem(WithRows(), LMConfig(), torch.float64)
+    di = entry.constrained_di(dtype=torch.float64, device="cpu")[0]
+    with_rows = LMProblem(di, LMConfig(), torch.float64)
+    assert with_rows.ng == 2 == di.ng and prob.ng == 0
+    assert with_rows.nr == with_rows.n_lsq + di.nc + 2 + di.nz
+    assert prob.nr == prob.n_lsq + prob.ocp.nc + prob.ocp.nz
 
 
 # --------------------------------------------------------------------------

@@ -121,8 +121,14 @@ def test_unported_options_are_refused():
         gl=torch.zeros((9, 1), dtype=torch.float64),
         gu=torch.zeros((9, 1), dtype=torch.float64),
     )
-    with pytest.raises(NotImplementedError):
-        tqp.solve_stage_qp(with_rows, tqp.QPConfig())
+    # general rows: the non-fused ADMM takes them since the constrained
+    # slice; the fused route (box QPs only) refuses them by name
+    assert bool(torch.isfinite(tqp.solve_stage_qp(with_rows, tqp.QPConfig()).delta).all())
+    with pytest.raises(NotImplementedError, match="general rows"):
+        tqp.solve_stage_qp(
+            convert.stage_qp_from_numpy(dict(d, G=np.zeros((9, 1, 4)), gl=np.zeros((9, 1)),
+                                             gu=np.zeros((9, 1))), torch.float32, "cpu"),
+            tqp.QPConfig(backend="fused"))
 
 
 def test_fused_backend_refuses_float64():

@@ -87,12 +87,8 @@ def jax_time_optimal(N, dtype):
     return cast_tree(ocp, dtype), cfg
 
 
-def spec_from_jax_ocp(ocp):
-    """numpy dict of a JAX TranscribedOCP of the ported kinds — a serial
-    integrator chain or Van der Pol; FD or multiple-shooting grid, dt pinned
-    or tied; a quadratic stage cost (alone or composed with a quadratic
-    terminal cost) or ``MinimumTime`` — the form ``convert.ocp_from_numpy``
-    reads."""
+def _grid_bounds_spec(ocp):
+    """Every key of ``convert.ocp_from_numpy`` but the cost's."""
     opt = lambda a: None if a is None else np.asarray(a)
     sys_ = ocp.system
     if isinstance(sys_, VanDerPolOscillator):
@@ -100,6 +96,27 @@ def spec_from_jax_ocp(ocp):
     else:
         system = dict(system="serial_integrators",
                       time_constant=float(sys_.time_constant))
+    return dict(
+        N=ocp.grid.N, nx=ocp.nx, nu=ocp.nu, **system,
+        grid_kind=ocp.grid.kind, fd_scheme=ocp.grid.fd_scheme,
+        integrator=ocp.grid.integrator,
+        integrator_substeps=ocp.grid.integrator_substeps,
+        cost_integration=ocp.grid.cost_integration, dt_mode=ocp.grid.dt_mode,
+        x_lb=np.asarray(ocp.bounds.x_lb), x_ub=np.asarray(ocp.bounds.x_ub),
+        u_lb=np.asarray(ocp.bounds.u_lb), u_ub=np.asarray(ocp.bounds.u_ub),
+        dt_lb=np.asarray(ocp.bounds.dt_lb), dt_ub=np.asarray(ocp.bounds.dt_ub),
+        xref=np.asarray(ocp.refs.xref), uref=np.asarray(ocp.refs.uref),
+        x0=np.asarray(ocp.bc.x0), xf=opt(ocp.bc.xf), xf_fixed=opt(ocp.bc.xf_fixed),
+        stage_mask=np.asarray(ocp.stage_mask),
+    )
+
+
+def spec_from_jax_ocp(ocp):
+    """numpy dict of a JAX TranscribedOCP of the ported kinds — a serial
+    integrator chain or Van der Pol; FD or multiple-shooting grid, dt pinned
+    or tied; a quadratic stage cost (alone or composed with a quadratic
+    terminal cost) or ``MinimumTime`` — the form ``convert.ocp_from_numpy``
+    reads."""
     if isinstance(ocp.cost, MinimumTime):
         cost = dict(cost="minimum_time", weight=float(ocp.cost.weight),
                     lsq_form=bool(ocp.cost.lsq_form))
@@ -108,20 +125,7 @@ def spec_from_jax_ocp(ocp):
         cost = dict(cost="quadratic", lsq_form=bool(form.lsq_form),
                     Q=np.asarray(form.Q), R=np.asarray(form.R),
                     Qf=None if final is None else np.asarray(final.Qf))
-    return dict(
-        N=ocp.grid.N, nx=ocp.nx, nu=ocp.nu, **system,
-        grid_kind=ocp.grid.kind, fd_scheme=ocp.grid.fd_scheme,
-        integrator=ocp.grid.integrator,
-        integrator_substeps=ocp.grid.integrator_substeps,
-        cost_integration=ocp.grid.cost_integration, dt_mode=ocp.grid.dt_mode,
-        cost_integral=bool(ocp.cost.integral), **cost,
-        x_lb=np.asarray(ocp.bounds.x_lb), x_ub=np.asarray(ocp.bounds.x_ub),
-        u_lb=np.asarray(ocp.bounds.u_lb), u_ub=np.asarray(ocp.bounds.u_ub),
-        dt_lb=np.asarray(ocp.bounds.dt_lb), dt_ub=np.asarray(ocp.bounds.dt_ub),
-        xref=np.asarray(ocp.refs.xref), uref=np.asarray(ocp.refs.uref),
-        x0=np.asarray(ocp.bc.x0), xf=opt(ocp.bc.xf), xf_fixed=opt(ocp.bc.xf_fixed),
-        stage_mask=np.asarray(ocp.stage_mask),
-    )
+    return dict(_grid_bounds_spec(ocp), cost_integral=bool(ocp.cost.integral), **cost)
 
 
 def torch_ocp_like(jax_ocp, dtype_name):
@@ -174,3 +178,37 @@ def kernel_args_np(d, rho, np_dtype):
         np.zeros((B, N, NC)), zeros,
     ]
     return [np.asarray(a, np_dtype) for a in args]
+
+
+def obj_spec(obj, **override):
+    """numpy spec of a JAX cost or constraint object — ``kind`` (the class
+    name) and its fields, nested objects as specs — as
+    ``convert.cost_from_numpy`` / ``constraint_from_numpy`` read it.
+    Callables are left out; ``override`` supplies the port's own (and any
+    other field)."""
+    import dataclasses
+
+    d = {"kind": type(obj).__name__}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if v is None or callable(v):
+            continue
+        if f.name == "costs":
+            v = [obj_spec(c) for c in v]
+        elif f.name == "constraint":
+            v = obj_spec(v)
+        elif isinstance(v, tuple):
+            v = tuple(int(i) for i in v)
+        elif hasattr(v, "shape"):
+            v = np.asarray(v)
+        d[f.name] = v
+    d.update(override)
+    return d
+
+
+def ocp_spec(ocp, stage_con=None, term_con=None):
+    """``spec_from_jax_ocp`` for any cost the port carries (``cost_spec``),
+    with the general rows' constraint specs (``obj_spec``, the port's
+    callables given there)."""
+    return dict(_grid_bounds_spec(ocp), cost_spec=obj_spec(ocp.cost),
+                stage_con=stage_con, term_con=term_con)
