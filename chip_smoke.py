@@ -16,7 +16,11 @@ multiple-shooting grid, a free dt per interval) open loop at B=4096 and under
 MPC with the RedundantControls grid adaptation (4096 rollouts of 25 steps,
 every lane its own active horizon), and the interior-point paths (config 1 by
 ``make_batched_ip_solver`` at B=32768, the constrained double integrator by
-IP, SQP and LM at B=4096, config 5 under the IP controller) — after building
+IP, SQP and LM at B=4096, config 5 under the IP controller), config 6
+(Van der Pol, Hermite-Simpson, open loop on the compressed and on the
+uncompressed grid, and under MPC), move blocking on config 1, the Kalman /
+dual-mode closed loop of ``examples/config5_kalman_dual_mode.yaml`` and
+block cyclic reduction in the plain ADMM — after building
 every CUDA kernel of those paths from the sources in this
 checkout and holding each kernel against its plain PyTorch version on the same
 inputs. There is no CPU path: without a CUDA device the script exits non-zero
@@ -25,9 +29,9 @@ and prints no result. Any phase that fails raises, and the run fails with it.
 Phases
   1 device   require CUDA; card name and power limit (nvidia-smi)
   2 build    compile csrc/*.cu with nvcc, one process per library (the
-             box-QP source for (nz, nc) = (4, 2) and (4, 3), the
+             box-QP source for (nz, nc) = (4, 2), (4, 3) and (6, 4), the
              block-tridiagonal source for nz = 4 and for nz = 2), started
-             together (seconds)
+             together (seconds); -Xptxas -v reports registers and spills
   3 kernels  box-QP ADMM kernels vs plain version at flagship shapes (Kst=51,
              nz=4, nc=2): the reciprocal-based quotient of the kernels against
              the division, bit for bit, on random operands; 256 lanes of
@@ -65,7 +69,16 @@ Phases
              systems of config 1's first and 8th lock-step iteration (as
              close to the float64 plain version as the float32 plain
              version), B=1, 8 and 1000 give the first lanes' bits, K3 against
-             K4, times, bound, launch shape, the dense library call
+             K4, times, bound, launch shape, the dense library call.
+             The box-QP solve kernel built for (nz, nc) = (6, 4) (phase
+             kernels_nz6: config 6 on the uncompressed Hermite-Simpson grid):
+             the quotient on 2^24 pairs; random QPs at Kst=21, Hd/J/K per
+             lane, four fixed rounds against the float32 plain version (5x
+             the flagship tolerances), B=1 and 8 the first lanes' bits on
+             both routes; the uncompressed first-iteration QPs of the
+             config-6 batch (B=4096) held as configs 2 and 3's are, B=1000
+             the first lanes' bits; route, shared memory, registers and
+             spills, times, bound; its own entry in the kernels line
   4 main     the batched SQP solve; gates: converged fraction >= 0.99, max
              |U - U_oracle| <= 1e-3 on the first 64 lanes (f64 oracle golden
              file), kernel launch counter > 0; solves/s, mean SQP iterations,
@@ -145,7 +158,42 @@ Phases
              the first 64 rollouts no lower than the JAX package's own
              float32 run; max |u_ip - u_sqp| against config 5's SQP rollout
              reported
- 10 result   one JSON line with every kernel's record, then the contract line
+ 10 grids    config 6 open loop (``entry.hermite_simpson`` and
+             ``hermite_simpson_unc``, N=20, B=4096, x0 ~ U(-1.5, 1.5)^2
+             from default_rng(60), lane 0 at [1, 0.5]): converged >= 0.99,
+             K1 launches == the lock-step SQP iterations (Hd/J/K per lane;
+             the uncompressed grid through the (6, 4) build), max |U -
+             U_oracle| <= 1e-3 on the 48 lanes of
+             tests/golden/torch_hs_vdp_oracle_N20.npz, the uncompressed U
+             within 1e-3 of the compressed U on every lane; move blocking on
+             config 1 (``entry.move_blocking``: ten blocks of 5, B=32768):
+             one one-shot K1 launch on shared Hd/J/K at nc = 3 plus the
+             outer iterations (== lock-step), converged >= 0.99, controls
+             equal inside each block to 1e-6, objective >= config 1's
+             unblocked objective - 1e-5 lane by lane; solves/s (best of 3),
+             SQP iterations, B=1 p50 / p99 (20 calls)
+ 11 hs_closed_loop  config 6 under MPC (``entry.rollouts_hs``, 4096
+             rollouts of 40 steps): K1 at every step == its lock-step SQP
+             iterations, Hd/J/K per lane; u finite; usable fraction of the
+             first 64 rollouts >= the JAX package's own float32 run
+             (``tools/config6_calibration.py``); max |u_fused - u_plain| <=
+             1e-3 over the first 10 steps, and over all 40 steps of the
+             first 256 rollouts (plain = backend 'plain'); rollouts/s, B=1
+             step p50 / p99
+ 12 dual_mode  ``entry.kalman_dual_mode`` (the config-5 YAML: N=30, T=60,
+             4096 rollouts, first-state output with noise 0.02 from a seeded
+             generator, Kalman filter, MPC -> LQR in x'x <= 0.09, latched):
+             K1 at every step on one hoisted Hd/J/K (== sum of the lock-step
+             SQP iterations), the switch contract on every lane and step, u
+             finite, |u| - 1 on MPC steps <= twice the JAX package's own
+             float32 value (the fused path leaves the box by ~3e-5 in
+             float32 in both packages); the same batch noise-free: every
+             lane local at the end with |x_T| < 5e-2
+ 13 bcr      the constrained double integrator by SQP through the plain
+             ADMM with linsolver='bcr' against 'scan' at B=4096 (scan's run
+             is the ip phase's) and B=1: max |U_bcr - U_scan| <= 1e-4,
+             converged >= 0.99, no kernel launched; times
+ 14 result   one JSON line with every kernel's record, then the contract line
 
 Output: progress lines (with ``--profile`` a ``{"profile": ...}`` line with
 the device time by kernel and the hand-written kernels launch by launch, a
@@ -159,13 +207,18 @@ steps of its adaptive rollouts), then a ``{"main": ...}`` line, a ``{"lm":
 ...}`` line, a ``{"nonlinear": ...}`` line, a ``{"closed_loop": ...}`` line,
 a ``{"nonuniform": ...}`` line, an ``{"ip": ...}`` line (``--profile``
 adds ``profile_ip``: one traced config-1 and constrained-DI IP batch, eager
-kernels per IP iteration), the nvidia-smi line, a ``{"kernels": [...]}``
+kernels per IP iteration, and ``profile_grids``: one traced batch of each
+path of phases 10-12), ``{"grids": ...}``, ``{"hs_closed_loop": ...}``,
+``{"dual_mode": ...}`` and ``{"bcr": ...}`` lines, the nvidia-smi line, a
+``{"kernels": [...]}``
 line (per kernel the contract's keys and, where a kernel was redesigned,
 ``earlier_ms`` / ``vs_earlier``: the kernel it replaced on the same inputs,
 and ``launch``: route, shared memory per lane, resident lanes per SM,
 registers per thread; the box-QP solve kernel adds ``launches_by_path`` and
 ``shapes``, its records at the nonlinear paths' shapes, on the closed
-loop's step-5 QPs and at config 4's two horizons; the in-place block-tridiagonal kernel adds
+loop's step-5 QPs, at config 4's two horizons and on the uncompressed
+config-6 QPs; ``boxqp_solve[nz6_nc4]`` is the (6, 4) build's own entry
+(launches: the uncompressed grid's path); the in-place block-tridiagonal kernel adds
 ``launches_by_path``: LM on config 1, the LM closed loop, config 1 by IP, the
 constrained double integrator by IP and by LM, the IP controller; K3 its
 ``inplace=False`` LM and IP passes; both add ``nz2``, their record at the IP
@@ -221,6 +274,28 @@ DI_DT = 0.25       # its pinned dt, carried by the initial guess
 DI_GOLDEN = ROOT / "tests" / "golden" / "torch_constrained_di_oracle_N25.npz"
 IP_CL_BATCH = 4096  # rollouts of config 5 under the IP controller
 IP_CL_STEPS = 5     # its steps
+HS_BATCH = 4096     # lanes of config 6 open loop (compressed and uncompressed grid)
+HS_TRIALS = 3       # config 6 open loop and move blocking: best of HS_TRIALS batches
+HS_SINGLE = 20      # single solves of each grid path for its p50 / p99
+HS_GOLDEN = ROOT / "tests" / "golden" / "torch_hs_vdp_oracle_N20.npz"
+MB_BATCH = 32768    # lanes of move blocking (config 1's main batch)
+BLOCK_TOL = 1e-6    # move blocking: controls equal inside a block
+HS_CL_BATCH = 4096  # rollouts of config 6 under MPC
+HS_CL_PLAIN_STEPS = 10  # steps of that batch also run by the plain backend
+HS_CL_PLAIN_LANES = 256  # rollouts of that batch run by the plain backend over all steps
+HS_CL_REF_LANES = 64
+# the JAX package's own float32 run of config 6's first 64 rollouts
+# (tools/config6_calibration.py, PERF.md §2)
+HS_CL_REF_USABLE = 1.0
+DM_BATCH = 4096     # rollouts of the Kalman / dual-mode closed loop
+DM_SEED = 5         # seed of the generator the output noise is drawn from
+# the largest |u| - 1 on the steps where MPC acts in the JAX package's own
+# float32 run of the dual-mode closed loop (first 64 rollouts, noise off,
+# the fused path's per-lane reference; tools/config6_calibration.py): ADMM
+# leaves the box by up to this much in float32, in both packages alike
+DM_REF_BOX = 2.765655517578125e-05
+DM_BOX_GATE = max(1e-6, 2.0 * DM_REF_BOX)
+BCR_TOL = 1e-4      # max |U_bcr - U_scan|
 # the JAX package's own float32 run of those rollouts (tools/ip_calibration.py):
 # the usable-step fraction of the first 64, which the port's may not fall below
 IP_CL_REF_LANES, IP_CL_REF_USABLE = 64, 1.0
@@ -2341,6 +2416,7 @@ def phase_ip(x0s_np, trials: int, n_single: int):
     if any(ak.LAUNCHES.values()) or any(bk.LAUNCHES.values()):
         raise AssertionError(f"constrained DI by SQP launched {ak.LAUNCHES} {bk.LAUNCHES}: "
                              "the path is the plain ADMM")
+    sqp_scan = (r.traj.U, s)
     di_rec["sqp"] = dict(
         _constrained_quality("SQP", r.traj.X, r.traj.U, r.status, di_gold),
         solves_per_s=DI_BATCH / s, batch_solve_ms=s * 1e3, qp_backend="plain",
@@ -2418,8 +2494,530 @@ def phase_ip(x0s_np, trials: int, n_single: int):
     log(f"IP controller: {json.dumps(rec['controller'])}")
     di_ip = make_batched_ip_solver(di, di_ip_cfg, dt_init=DI_DT)
     return (launches, k3_paths, held, rec,
-            dict(config1_ip=(solver, B), constrained_di_ip=(di_ip, DI_BATCH)))
+            dict(config1_ip=(solver, B), constrained_di_ip=(di_ip, DI_BATCH)), sqp_scan)
 
+
+
+# --------------------------------------------------------------------------
+# the other grids and the LQR family (configs 6 and 5's YAML, move blocking,
+# block cyclic reduction)
+# --------------------------------------------------------------------------
+
+def hs_x0s(n: int) -> np.ndarray:
+    """The first n of config 6's 4096 initial states: x0 ~ U(-1.5, 1.5)² from
+    ``default_rng(60)``, lane 0 at the YAML's [1, 0.5]
+    (``tools/hs_vdp_oracle_golden.py``); float32."""
+    x0s = np.random.default_rng(60).uniform(-1.5, 1.5, size=(4096, 2)).astype(np.float32)
+    x0s[0] = [1.0, 0.5]
+    return x0s[:n]
+
+
+def dual_mode_x0s(n: int) -> np.ndarray:
+    """The first n of the dual-mode phase's 4096 initial states: x0 = [p, v],
+    p ~ U(-1.5, 1.5), v ~ U(-0.5, 0.5) from ``default_rng(50)``, lane 0 at the
+    YAML's [1, 0] (``tools/config6_calibration.py``); float32."""
+    rng = np.random.default_rng(50)
+    x0s = np.stack([rng.uniform(-1.5, 1.5, 4096), rng.uniform(-0.5, 0.5, 4096)],
+                   axis=1).astype(np.float32)
+    x0s[0] = [1.0, 0.0]
+    return x0s[:n]
+
+
+def _b1_latencies(solver, x0, n):
+    solver(x0)
+    torch.cuda.synchronize()
+    lats = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        solver(x0)
+        torch.cuda.synchronize()
+        lats.append(time.perf_counter() - t0)
+    return dict(p50_single_solve_ms=float(np.percentile(lats, 50) * 1e3),
+                p99_single_solve_ms=float(np.percentile(lats, 99) * 1e3), single_solves=n)
+
+
+def _best_of(fn, trials):
+    best = float("inf")
+    for _ in range(trials):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def phase_kernels_nz6(reps: int):
+    """K1 built for (nz, nc) = (6, 4): config 6 on the uncompressed
+    Hermite-Simpson grid (the midpoint states in the stage vector, their
+    interpolation rows among the interval rows). The quotient against the
+    division on 2^24 pairs; random QPs at Kst=21 with Hd/J/K per lane (four
+    rounds of fixed work against the float32 plain version, x and duals at
+    5x the flagship tolerances; B=1, 8 and 1000 give the first lanes' bits,
+    so does the one-thread-per-lane route); the HS-unc first-iteration QPs
+    of the chip batch (B=4096) as ``per_lane_k1_record`` holds them, and B =
+    1000 the first lanes' bits there. Records the route, shared memory,
+    resident lanes, registers and spills (``-Xptxas -v``), times and the
+    bound."""
+    from control_box_rst_tpu_torch.entry import hermite_simpson_unc
+    from control_box_rst_tpu_torch.ops.cuda import admm_kernel as ak
+    from control_box_rst_tpu_torch.ops.cuda import build
+
+    ocp, cfg = hermite_simpson_unc(N=20)
+    Kst, nz, nc = ocp.N + 1, ocp.nz, ocp.nc
+    if (Kst, nz, nc) != (21, 6, 4):
+        raise AssertionError(f"HS-unc: expected Kst 21, nz 6, nc 4, got {(Kst, nz, nc)}")
+    rec = dict(Kst=Kst, nz=nz, nc=nc)
+    lib = build.library_path(*ak.build_spec(nz, nc)).name
+    report = build.ptxas_report(build.BUILD_OUTPUT.get(lib, ""))
+    rec["ptxas"] = {k: v for k, v in report.items() if "boxqp_solve" in k or "admm_round" in k}
+    rec["quotient_pairs_bit_equal"] = check_quotient(ak, nz, nc)
+    qp = cfg.qp
+    fixed_kw = dict(sigma=qp.sigma, alpha=qp.alpha, rho_eq_scale=qp.rho_eq_scale,
+                    rho_min=qp.rho_min, rho_max=qp.rho_max, n_rounds=4,
+                    iters=qp.iters_per_round, tol=0.0)
+    x5 = {k: 5 * v for k, v in X_TOL.items()}
+    d5 = {k: 5 * v for k, v in DUAL_TOL.items()}
+    args = random_qps(1000, Kst, nz, nc, 0.1, "cuda")
+    out_k = ak.boxqp_solve(*args, **fixed_kw)
+    torch.cuda.synchronize()
+    launch = dict(ak.LAUNCH_INFO["boxqp_solve"])
+    if launch.get("route") != "smem" or launch.get("shared_hjk"):
+        raise AssertionError(f"K1 (6, 4): expected the shared-memory route, per-lane Hd/J/K, took {launch}")
+    out_p = ak.boxqp_solve_plain(*args, **fixed_kw)
+    rec["random_fixed4_x"] = assert_close("K1 (6, 4) random x", out_k[0], out_p[0], **x5)
+    assert_close("K1 (6, 4) random y_d", out_k[2], out_p[2], **d5)
+    assert_close("K1 (6, 4) random y_b", out_k[3], out_p[3], **d5)
+    for n in (1, 8):
+        for route in ("smem", "thread"):
+            full = out_k if route == "smem" else ak.boxqp_solve(*args, **fixed_kw, route="thread")
+            out_n = ak.boxqp_solve(*[a[:n] for a in args], **fixed_kw, route=route)
+            torch.cuda.synchronize()
+            if not all_equal(out_n, [o[:n] for o in full]):
+                raise AssertionError(f"K1 (6, 4) random, route {route}: B={n} disagrees with the first lanes")
+    out_t = ak.boxqp_solve(*args, **fixed_kw, route="thread")
+    torch.cuda.synchronize()
+    assert_close("K1 (6, 4) random thread route x", out_t[0], out_p[0], **x5)
+    rec["random_smem_bit_equal_thread"] = all_equal(out_k, out_t)
+    del args, out_k, out_p, out_t
+    x0s = torch.as_tensor(hs_x0s(HS_BATCH), device="cuda")
+    args, kw = first_iteration_qps(ocp, cfg, 0.1, x0s)
+    rec.update(per_lane_k1_record("hermite_simpson_unc", args, kw, reps))
+    full = ak.boxqp_solve(*args, **kw)
+    sub = ak.boxqp_solve(*[a[:1000] for a in args], **kw)
+    torch.cuda.synchronize()
+    if not all_equal(sub, [o[:1000] for o in full]):
+        raise AssertionError("K1 (6, 4) on HS-unc QPs: B=1000 disagrees with the first lanes")
+    rec["smem_bytes_per_lane"] = ak.state_bytes_per_lane(Kst, nz, nc, False)
+    log(json.dumps({"kernels_nz6": rec}))
+    return rec
+
+
+def _open_loop_record(name, solver, x0s, trials, n_single, ak, per_lane_hjk):
+    """One batched open-loop solve of a grid phase: K1 launches == the
+    lock-step SQP iterations, converged >= 0.99, U finite; solves/s (best of
+    ``trials``), SQP iterations, B=1 p50 / p99. Returns (record, U, obj,
+    status, K1 launches, the K1 calls of the counted run by kind)."""
+    B = x0s.shape[0]
+    solver(x0s[:256])
+    torch.cuda.synchronize()
+    calls, restore = catch_boxqp_calls(ak)
+    ak.reset_launch_counts()
+    try:
+        U, obj, status, iters = solver(x0s)
+        torch.cuda.synchronize()
+        n_launch = ak.LAUNCHES["boxqp_solve"]
+    finally:
+        restore()
+    route = dict(ak.LAUNCH_INFO["boxqp_solve"])
+    lock = int(iters.max())
+    log(f"{name}: boxqp_solve launched {n_launch} time(s) in {lock} lock-step SQP iterations, "
+        f"last launch {route}")
+    if not bool(torch.isfinite(U).all()) or not bool(torch.isfinite(obj).all()):
+        raise AssertionError(f"{name}: non-finite U or objective")
+    if n_launch <= 0 or n_launch != lock:
+        raise AssertionError(f"{name}: {n_launch} boxqp_solve launches for {lock} lock-step SQP iterations")
+    if route.get("route") != "smem" or bool(route.get("shared_hjk")) == per_lane_hjk:
+        raise AssertionError(f"{name}: boxqp_solve took {route}")
+    conv = float((status == 1).float().mean())
+    if conv < CONV_GATE:
+        raise AssertionError(f"{name}: converged_frac {conv:.4f} < {CONV_GATE}")
+    best = _best_of(lambda: solver(x0s), trials)
+    rec = dict(batch=B, solves_per_s=B / best, batch_solve_ms=best * 1e3, converged_frac=conv,
+               mean_sqp_iters=float(iters.float().mean()), max_sqp_iters=lock,
+               boxqp_solve_launches=n_launch, kernel_route=route,
+               boxqp_solve_calls=dict(one_shot=calls["one_shot"], outer=calls["outer"],
+                                      per_lane_hjk=calls["per_lane_hjk_calls"]),
+               **_b1_latencies(solver, x0s[:1], n_single))
+    return rec, U, obj, status, n_launch
+
+
+def phase_grids(x0s_main_np, trials: int, n_single: int):
+    """Config 6 open loop (``entry.hermite_simpson``, N=20, B=4096) on the
+    compressed and on the uncompressed Hermite-Simpson grid (the latter
+    through K1's (6, 4) build), and move blocking on config 1
+    (``entry.move_blocking``, ten blocks of 5, B=32768, the main batch).
+    Gates: converged >= 0.99, K1 launches == lock-step SQP iterations > 0;
+    config 6: max |U - U_oracle| <= 1e-3 on the 48 lanes of the float64
+    golden, HS-unc's U within 1e-3 of HS's on every lane; move blocking: the
+    one-shot on one shared copy of Hd/J/K at nc 3, controls equal inside each
+    block to 1e-6 on every lane, objective >= config 1's unblocked objective
+    - 1e-5 lane by lane. Returns (K1 launches by path, record, the batched
+    solvers by path)."""
+    from control_box_rst_tpu_torch.entry import (
+        flagship,
+        hermite_simpson,
+        hermite_simpson_unc,
+        move_blocking,
+    )
+    from control_box_rst_tpu_torch.ops.cuda import admm_kernel as ak
+    from control_box_rst_tpu_torch.parallel import make_batched_solver
+
+    gold = np.load(HS_GOLDEN)
+    n_g = gold["U"].shape[0]
+    x0s_np = hs_x0s(HS_BATCH)
+    if not np.array_equal(gold["x0s"], x0s_np[:n_g]):
+        raise AssertionError("config-6 golden file was made for other initial states")
+    x0s = torch.as_tensor(x0s_np, device="cuda")
+    launches, recs, Us, solvers = {}, {}, {}, {}
+    for path, build_ocp in (("hs_config6", hermite_simpson), ("hs_unc_config6", hermite_simpson_unc)):
+        ocp, cfg = build_ocp(N=20)
+        solver = solvers[path] = make_batched_solver(ocp, cfg, dt_init=0.1)  # device=None: the card
+        rec, U, _, _, n = _open_loop_record(path, solver, x0s, trials, n_single, ak, True)
+        if rec["boxqp_solve_calls"]["per_lane_hjk"] != n:
+            raise AssertionError(f"{path}: K1 calls {rec['boxqp_solve_calls']}: Hd/J/K not per lane")
+        err = float(np.abs(U[:n_g].double().cpu().numpy() - gold["U"]).max())
+        rec.update(nz=ocp.nz, nc=ocp.nc, max_u_err_vs_f64_oracle=err, oracle_lanes=n_g)
+        if not err <= ERR_GATE:
+            raise AssertionError(f"{path}: max |U - U_oracle| {err:.3e} > {ERR_GATE}")
+        if rec["kernel_route"].get("smem_bytes_per_lane") != ak.state_bytes_per_lane(21, ocp.nz, ocp.nc, False):
+            raise AssertionError(f"{path}: K1 took {rec['kernel_route']}")
+        launches[path], recs[path], Us[path] = n, rec, U
+    d_unc = float((Us["hs_unc_config6"] - Us["hs_config6"]).abs().max())
+    recs["hs_unc_config6"]["max_u_vs_hs"] = d_unc
+    if not d_unc <= ERR_GATE:
+        raise AssertionError(f"HS-unc: max |U_unc - U_hs| {d_unc:.3e} > {ERR_GATE}")
+    del Us
+
+    # move blocking on config 1: the one-shot through the nc = 3 build
+    ocp, cfg = move_blocking(N=50)
+    x0s = torch.as_tensor(x0s_main_np[:MB_BATCH], device="cuda")
+    solver = solvers["move_blocking_config1"] = make_batched_solver(ocp, cfg, dt_init=0.1)
+    rec, U, obj, status, n = _open_loop_record(
+        "move_blocking_config1", solver, x0s, trials, n_single, ak, False)
+    calls = rec["boxqp_solve_calls"]
+    if calls["per_lane_hjk"] or calls["one_shot"] != 1 or calls["one_shot"] + calls["outer"] != n:
+        raise AssertionError(f"move blocking: K1 calls {calls}: expected one one-shot solve and "
+                             "the outer iterations, all on shared Hd/J/K")
+    Ub = U[..., 0].reshape(U.shape[0], 10, ocp.N // 10)
+    spread = (Ub - Ub[..., :1]).abs().amax(dim=(1, 2))
+    free_ocp, free_cfg = flagship(N=50)
+    _, obj_free, st_free, _ = make_batched_solver(free_ocp, free_cfg, dt_init=0.1)(x0s)
+    torch.cuda.synchronize()
+    gap = obj.double() - obj_free.double()
+    rec.update(nz=ocp.nz, nc=ocp.nc, blocks=10, max_in_block_spread=float(spread.max()),
+               min_objective_gap_vs_unblocked=float(gap.min()),
+               mean_objective_gap_vs_unblocked=float(gap.mean()),
+               unblocked_converged_frac=float((st_free == 1).float().mean()))
+    log(f"move blocking: {json.dumps(rec)}")
+    if not float(spread.max()) <= BLOCK_TOL:
+        raise AssertionError(f"move blocking: controls differ inside a block by {float(spread.max()):.3e}")
+    if not float(gap.min()) >= -1e-5:
+        raise AssertionError(f"move blocking: objective below the unblocked one by {-float(gap.min()):.3e}")
+    launches["move_blocking_config1"] = n
+    recs["move_blocking_config1"] = rec
+    return launches, recs, solvers
+
+
+def phase_hs_closed_loop():
+    """Config 6 under MPC (``entry.rollouts_hs``: 10 SQP iterations a step)
+    for HS_CL_BATCH rollouts of 40 steps against the simulated Van der Pol,
+    through ``make_batched_closed_loop``. Gates: K1 at every step == that
+    step's lock-step SQP iterations > 0, Hd/J/K per lane on every call;
+    every u finite; the usable-step fraction of the first 64 rollouts no
+    lower than the JAX package's own float32 run of them
+    (``tools/config6_calibration.py``); max |u_fused - u_plain| <= 1e-3 over
+    the first HS_CL_PLAIN_STEPS steps of the same batch and over all 40
+    steps of its first HS_CL_PLAIN_LANES rollouts (plain =
+    ``backend='plain'``). Returns (K1 launches, record)."""
+    from control_box_rst_tpu_torch.entry import rollouts_hs
+    from control_box_rst_tpu_torch.ops.cuda import admm_kernel as ak
+    from control_box_rst_tpu_torch.parallel import make_batched_closed_loop
+
+    ctrl, plant, T, dt = rollouts_hs(N=20)
+    x0s = torch.as_tensor(hs_x0s(HS_CL_BATCH), device="cuda")
+    if ctrl.hoisted.Jm is not None or ctrl.sqp_cfg.qp.backend != "fused":
+        raise AssertionError("config 6 closed loop: expected nothing hoisted, the fused backend")
+    make_batched_closed_loop(ctrl, plant, 2, dt)(x0s[:256])  # warm-up
+    roll = make_batched_closed_loop(ctrl, plant, T, dt)
+    calls, restore = catch_steps_and_boxqp_calls(ak, T, keep_step=-2)
+    ak.reset_launch_counts()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = roll(x0s)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        n_launch = ak.LAUNCHES["boxqp_solve"]
+    finally:
+        restore()
+    lock = res.info["sqp_iters"].amax(dim=0)
+    log(f"config 6 closed loop: boxqp_solve launched {n_launch} time(s), by step "
+        f"{calls['by_step']}, lock-step SQP iterations {lock.tolist()}")
+    if calls["by_step"] != lock.tolist() or n_launch != int(lock.sum()) or n_launch <= 0 \
+            or min(calls["by_step"]) <= 0:
+        raise AssertionError("config 6 closed loop: K1 launches by step differ from the lock-step "
+                             "SQP iterations")
+    if calls["per_lane_hjk_calls"] != n_launch or calls["kst"] != {21}:
+        raise AssertionError(f"config 6 closed loop: K1 calls {calls['per_lane_hjk_calls']} per lane "
+                             f"of {n_launch}, horizons {calls['kst']}")
+    if not bool(torch.isfinite(res.u).all()) or not bool(torch.isfinite(res.x_true).all()):
+        raise AssertionError("config 6 closed loop: non-finite u or x")
+    usable_ref = float(res.ok[:HS_CL_REF_LANES].float().mean())
+    if usable_ref < HS_CL_REF_USABLE:
+        raise AssertionError(f"config 6 closed loop: usable fraction of the first {HS_CL_REF_LANES} "
+                             f"rollouts {usable_ref:.4f} < the reference's {HS_CL_REF_USABLE}")
+    plain_ctrl = ctrl.replace(cfg=ctrl.cfg.replace(qp=ctrl.cfg.qp.replace(backend="plain")))
+    ak.reset_launch_counts()
+    t1 = time.perf_counter()
+    res_p = make_batched_closed_loop(plain_ctrl, plant, HS_CL_PLAIN_STEPS, dt)(x0s)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t1
+    if ak.LAUNCHES["boxqp_solve"]:
+        raise AssertionError("config 6 closed loop: the plain backend launched K1")
+    u_dev = float((res.u[:, :HS_CL_PLAIN_STEPS] - res_p.u).abs().max())
+    if not u_dev <= ERR_GATE:
+        raise AssertionError(f"config 6 closed loop: max |u_fused - u_plain| {u_dev:.3e} > {ERR_GATE}")
+    # the warm-started later steps too, on the first rollouts
+    t1 = time.perf_counter()
+    res_q = make_batched_closed_loop(plain_ctrl, plant, T, dt)(x0s[:HS_CL_PLAIN_LANES])
+    torch.cuda.synchronize()
+    plain_all_s = time.perf_counter() - t1
+    if ak.LAUNCHES["boxqp_solve"]:
+        raise AssertionError("config 6 closed loop: the plain backend launched K1")
+    u_dev_all = float((res.u[:HS_CL_PLAIN_LANES] - res_q.u).abs().max())
+    if not u_dev_all <= ERR_GATE:
+        raise AssertionError(f"config 6 closed loop: max |u_fused - u_plain| over all {T} steps of "
+                             f"the first {HS_CL_PLAIN_LANES} rollouts {u_dev_all:.3e} > {ERR_GATE}")
+
+    x1 = x0s[:1]
+    c1 = ctrl.init_carry(x1)
+    lats = []
+    for k in range(T):
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        c1, out = ctrl.step(c1, x1, k * dt, dt)
+        torch.cuda.synchronize()
+        lats.append(time.perf_counter() - t2)
+        x1 = plant.step(x1, torch.where(out.ok[:, None], out.u, torch.zeros_like(out.u)), dt)
+    rec = dict(
+        batch=HS_CL_BATCH, t_steps=T, dt=dt, rollouts_per_s=HS_CL_BATCH / s,
+        mpc_steps_per_s=HS_CL_BATCH * T / s, rollout_batch_ms=s * 1e3,
+        usable_step_frac=float(res.ok.float().mean()), usable_step_frac_first64=usable_ref,
+        boxqp_solve_launches=n_launch, lock_step_sqp_iters=lock.tolist(),
+        mean_sqp_iters=float(res.info["sqp_iters"].float().mean()),
+        max_u_dev_vs_plain=u_dev, plain_steps=HS_CL_PLAIN_STEPS, plain_rollout_s=plain_s,
+        max_u_dev_vs_plain_all_steps=u_dev_all, plain_all_steps_lanes=HS_CL_PLAIN_LANES,
+        plain_all_steps_rollout_s=plain_all_s,
+        mean_final_state_norm=float(res.x_true[:, -1].norm(dim=-1).mean()),
+        p50_single_step_ms=float(np.percentile(lats, 50) * 1e3),
+        p99_single_step_ms=float(np.percentile(lats, 99) * 1e3),
+        kernel_route=dict(ak.LAUNCH_INFO["boxqp_solve"]),
+    )
+    log(json.dumps({"hs_closed_loop": rec}))
+    return n_launch, rec
+
+
+def _switch_contract(label, res, S, gamma):
+    """local_active = (x̂ᵀ S x̂ ≤ γ), latched once entered, on every lane and
+    step."""
+    xo = res.x_observed
+    inside = torch.einsum("btI,IJ,btJ->bt", xo, S, xo) <= gamma
+    want = torch.cummax(inside.to(torch.int32), dim=1).values.bool()
+    if not torch.equal(res.info["local_active"], want):
+        bad = int((res.info["local_active"] != want).sum())
+        raise AssertionError(f"{label}: local_active breaks the latched switch contract on {bad} lane-steps")
+
+
+def phase_dual_mode():
+    """Config 5 of ``examples/config5_kalman_dual_mode.yaml``
+    (``entry.kalman_dual_mode``: N=30, T=60, the first state measured with
+    noise of std 0.02 from a seeded ``torch.Generator``, a steady-state
+    Kalman filter, MPC handing over to an LQR inside xᵀx ≤ 0.09, latched)
+    for DM_BATCH rollouts through ``make_batched_closed_loop``. Gates: K1 at
+    every step on one hoisted copy of Hd/J/K (launches == the sum over steps
+    of the lock-step SQP iterations > 0, no call with per-lane Hd/J/K); the
+    switch contract on every lane and step; u finite; on the steps where MPC
+    acts |u| - 1 <= DM_BOX_GATE (twice the JAX package's own float32 run,
+    ``tools/config6_calibration.py``); a noise-free copy of the batch: every
+    lane in the local mode at the end with |x_T| < 5e-2, the contract, the
+    box gate. Returns (K1 launches, record)."""
+    from control_box_rst_tpu_torch.entry import kalman_dual_mode
+    from control_box_rst_tpu_torch.ops.cuda import admm_kernel as ak
+    from control_box_rst_tpu_torch.parallel import make_batched_closed_loop
+
+    ctrl, plant, T, dt, obs = kalman_dual_mode(N=30)
+    x0s = torch.as_tensor(dual_mode_x0s(DM_BATCH), device="cuda")
+    mpc = ctrl.global_controller
+    if mpc.hoisted.Jm is None or mpc.hoisted.Jm.dim() != 3 or mpc.sqp_cfg.qp.backend != "fused":
+        raise AssertionError("dual mode: expected one hoisted J/K/Hd and the fused backend")
+    make_batched_closed_loop(ctrl, plant, 2, dt, observer=obs)(
+        x0s[:256], generator=torch.Generator(device="cuda").manual_seed(0))  # warm-up
+    roll = make_batched_closed_loop(ctrl, plant, T, dt, observer=obs)
+    S, gamma = ctrl.S, ctrl.gamma
+    out = {}
+    for label, noisy in (("noisy", True), ("noise_free", False)):
+        gen = torch.Generator(device="cuda").manual_seed(DM_SEED)
+        r = roll if noisy else make_batched_closed_loop(
+            ctrl, plant.replace(output_noise=None), T, dt, observer=obs)
+        calls, restore = catch_boxqp_calls(ak)
+        ak.reset_launch_counts()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = r(x0s, generator=gen)
+            torch.cuda.synchronize()
+            s = time.perf_counter() - t0
+            n_launch = ak.LAUNCHES["boxqp_solve"]
+        finally:
+            restore()
+        lock = res.info["sqp_iters"].amax(dim=0)
+        if n_launch <= 0 or n_launch != int(lock.sum()) or calls["one_shot"] != T \
+                or calls["per_lane_hjk_calls"]:
+            raise AssertionError(f"dual mode ({label}): {n_launch} K1 launches, calls {calls}, "
+                                 f"lock-step {lock.tolist()}")
+        _switch_contract(f"dual mode ({label})", res, S, gamma)
+        if not bool(torch.isfinite(res.u).all()):
+            raise AssertionError(f"dual mode ({label}): non-finite u")
+        la = res.info["local_active"]
+        over = (res.u[..., 0].abs() - 1.0)[~la]
+        over_max = float(over.max()) if over.numel() else -1.0
+        over64 = (res.u[:64, :, 0].abs() - 1.0)[~la[:64]]
+        over64_max = float(over64.max()) if over64.numel() else -1.0
+        if not over_max <= DM_BOX_GATE:
+            raise AssertionError(f"dual mode ({label}): |u| - 1 = {over_max:.3e} on an MPC step "
+                                 f"> {DM_BOX_GATE:.3e}")
+        x_T = res.x_true[:, -1].norm(dim=-1)
+        first = torch.where(la.any(dim=1), la.to(torch.int8).argmax(dim=1), torch.full_like(x_T, T, dtype=torch.int64))
+        out[label] = dict(
+            batch=DM_BATCH, t_steps=T, rollouts_per_s=DM_BATCH / s, rollout_batch_ms=s * 1e3,
+            boxqp_solve_launches=n_launch, one_shot_calls=calls["one_shot"],
+            outer_calls=calls["outer"], lock_step_sqp_iters=lock.tolist(),
+            local_at_end_frac=float(la[:, -1].float().mean()),
+            mean_switch_step=float(first.float().mean()),
+            local_step_frac=float(la.float().mean()), usable_step_frac=float(res.ok.float().mean()),
+            max_u_over_box_on_mpc_steps=over_max, max_u_over_box_first64=over64_max,
+            max_final_state_norm=float(x_T.max()), mean_final_state_norm=float(x_T.mean()),
+            max_u_on_local_steps=float(res.u[la].abs().max()) if bool(la.any()) else 0.0,
+        )
+        if not noisy:
+            if not bool(la[:, -1].all()) or not float(x_T.max()) < 5e-2:
+                raise AssertionError(f"dual mode (noise free): local at the end on "
+                                     f"{float(la[:, -1].float().mean()):.4f} of lanes, max |x_T| "
+                                     f"{float(x_T.max()):.3e}")
+        else:
+            noise = (res.y[..., 0] - res.x_true[:, :-1, 0]).std()
+            out[label]["output_noise_std"] = float(noise)
+        log(f"dual mode ({label}): {json.dumps(out[label])}")
+    out["box_gate"] = DM_BOX_GATE
+    return out["noisy"]["boxqp_solve_launches"], out
+
+
+def phase_bcr(u_scan, scan_s):
+    """Block cyclic reduction in the plain ADMM: the constrained double
+    integrator by SQP (``entry.constrained_di``, general rows, so the plain
+    ADMM), ``linsolver='bcr'`` against 'scan' at B=4096 (scan's solve is the
+    ip phase's, ``u_scan`` in ``scan_s`` seconds) and at B=1 (lane 0). Gates:
+    max |U_bcr - U_scan| <= 1e-4 at both sizes, converged >= 0.99, no kernel
+    launched. Returns the record."""
+    from control_box_rst_tpu_torch.entry import constrained_di
+    from control_box_rst_tpu_torch.ocp.problem import Trajectory
+    from control_box_rst_tpu_torch.ops.cuda import admm_kernel as ak
+    from control_box_rst_tpu_torch.ops.cuda import btridiag_kernel as bk
+    from control_box_rst_tpu_torch.solvers import sqp_solve
+    from control_box_rst_tpu_torch.solvers.sqp import resolve_qp_backend
+
+    di, sqp_cfg, _, _ = constrained_di()
+    scfg = resolve_qp_backend(sqp_cfg, di.ng, "cuda", torch.float32)
+    cfgs = {ls: scfg.replace(qp=scfg.qp.replace(linsolver=ls)) for ls in ("scan", "bcr")}
+    xd = torch.as_tensor(constrained_di_x0s(), device="cuda")
+
+    def solve(x, ls):
+        o = di.replace(bc=di.bc.replace(x0=x))
+        traj0 = Trajectory.linear_interp(x, torch.zeros(2, device="cuda"), di.N, di.nu, DI_DT)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = sqp_solve(o, traj0, cfgs[ls])
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    ak.reset_launch_counts()
+    bk.reset_launch_counts()
+    r_bcr, bcr_s = solve(xd, "bcr")
+    r1 = {ls: solve(xd[:1], ls) for ls in ("scan", "bcr")}
+    if any(ak.LAUNCHES.values()) or any(bk.LAUNCHES.values()):
+        raise AssertionError(f"bcr: a kernel was launched ({ak.LAUNCHES}, {bk.LAUNCHES})")
+    d_batch = float((r_bcr.traj.U - u_scan).abs().max())
+    d_one = float((r1["bcr"][0].traj.U - r1["scan"][0].traj.U).abs().max())
+    conv = float((r_bcr.status == 1).float().mean())
+    rec = dict(batch=DI_BATCH, scan_batch_ms=scan_s * 1e3, bcr_batch_ms=bcr_s * 1e3,
+               scan_single_ms=r1["scan"][1] * 1e3, bcr_single_ms=r1["bcr"][1] * 1e3,
+               max_u_bcr_vs_scan=d_batch, max_u_bcr_vs_scan_single=d_one,
+               bcr_converged_frac=conv, bcr_max_sqp_iters=int(r_bcr.iterations.max()))
+    log(json.dumps({"bcr": rec}))
+    if not (d_batch <= BCR_TOL and d_one <= BCR_TOL):
+        raise AssertionError(f"bcr: max |U_bcr - U_scan| {d_batch:.3e} (B={DI_BATCH}), "
+                             f"{d_one:.3e} (B=1) > {BCR_TOL}")
+    if conv < CONV_GATE:
+        raise AssertionError(f"bcr: converged_frac {conv:.4f} < {CONV_GATE}")
+    return rec
+
+
+def profile_new_paths(grid_solvers, x0s_main_np):
+    """``phase_profile`` of one batch of each path of this slice: config 6
+    open loop on both grids and move blocking (eager kernels per lock-step
+    SQP iteration), 5 steps of config 6 under MPC and 10 steps of the
+    Kalman / dual-mode loop (eager kernels per MPC step)."""
+    from control_box_rst_tpu_torch.entry import kalman_dual_mode, rollouts_hs
+    from control_box_rst_tpu_torch.parallel import make_batched_closed_loop
+
+    hs = hs_x0s(HS_BATCH)
+    prof = phase_profile({k: (v, HS_BATCH) for k, v in grid_solvers.items() if k != "move_blocking_config1"}, hs)
+    prof.update(phase_profile(
+        {"move_blocking_config1": (grid_solvers["move_blocking_config1"], MB_BATCH)}, x0s_main_np))
+    ctrl, plant, _, dt = rollouts_hs(N=20)
+    prof.update(phase_profile(
+        {"hs_closed_loop_5_steps": (make_batched_closed_loop(ctrl, plant, 5, dt), HS_CL_BATCH)}, hs))
+    ctrl, plant, _, dt, obs = kalman_dual_mode(N=30)
+    prof.update(phase_profile(
+        {"dual_mode_10_steps": (make_batched_closed_loop(ctrl, plant, 10, dt, observer=obs), DM_BATCH)},
+        dual_mode_x0s(DM_BATCH)))
+    for name, p in prof.items():
+        k1 = [v for k, v in p["own_kernels"].items() if "boxqp_solve" in k]
+        if len(k1) != 1:
+            raise AssertionError(f"{name}: the profiler saw {list(p['own_kernels'])}")
+        p["k1_launches"] = k1[0]["launches"]
+        steps = 5 if name.startswith("hs_closed") else 10 if name.startswith("dual") else None
+        per = steps or k1[0]["launches"]
+        p["eager_kernels_per_" + ("mpc_step" if steps else "sqp_iteration")] = (
+            p["n_device_kernels"] - k1[0]["launches"]) / per
+    return prof
+
+
+def nz6_kernel_record(rec, launches):
+    """The kernels-line entry of K1's (6, 4) specialisation."""
+    return dict(
+        name="boxqp_solve[nz6_nc4]", route="cuda",
+        source="control_box_rst_tpu_torch/csrc/admm_kernel.cu",
+        replaces="control_box_rst_tpu/ops/pallas/admm_kernel.py:483",
+        launches=launches, max_abs_err=rec["max_abs_err"], ms=rec["ms"],
+        plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
+        library_ms=None, on_main_path=True, batch=rec["batch"], Kst=rec["Kst"], nz=6, nc=4,
+        alone_ms=rec["alone_ms"], launch=rec["launch"], ptxas=rec["ptxas"],
+        err_vs_f64=rec["err_vs_f64"], plain_err_vs_f64=rec["plain_err_vs_f64"],
+        same_it_frac=rec["same_it_frac"], mean_rounds=rec["mean_rounds"],
+        smem_bytes_per_lane=rec["smem_bytes_per_lane"],
+    )
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2443,6 +3041,8 @@ def main() -> int:
         flagship,
         flagship_ip,
         flagship_lm,
+        hermite_simpson_unc,
+        move_blocking,
         nonuniform_ms_timeopt,
     )
     from control_box_rst_tpu_torch.ops.cuda import admm_kernel as ak
@@ -2463,7 +3063,9 @@ def main() -> int:
     _, lm_cfg = flagship_lm(N=50)
     problems = nonlinear_problems()
     t0 = time.perf_counter()
-    shapes = sorted({(ocp.nz, ocp.nc)} | {(p[0].nz, p[0].nc) for p in problems.values()})
+    grid_ocps = [hermite_simpson_unc(N=20)[0], move_blocking(N=50)[0]]
+    shapes = sorted({(ocp.nz, ocp.nc)} | {(p[0].nz, p[0].nc) for p in problems.values()}
+                    | {(o.nz, o.nc) for o in grid_ocps})
     libs = build.build_all(
         [ak.build_spec(nz, nc) for nz, nc in shapes]
         + [bk.build_spec(ocp.nz), bk.build_spec(ocp.nc)], verbose=True)
@@ -2484,6 +3086,8 @@ def main() -> int:
     for r in records:
         if r["name"] in nz2:
             r["nz2"] = nz2[r["name"]]
+    nz6 = phase_kernels_nz6(KERNEL_REPS)
+    records[0]["shapes"]["hermite_simpson_unc"] = nz6
     stamp("kernels")
     if opts.skip_main:
         log(json.dumps({"kernels": records}))
@@ -2511,11 +3115,23 @@ def main() -> int:
     del nu_kept
     stamp("nonuniform_kernels")
     # ---- the interior-point paths ----
-    ip_launches, ip_k3, ip_held, ip_rec, ip_solvers = phase_ip(x0s_np, IP_TRIALS, IP_SINGLE)
+    ip_launches, ip_k3, ip_held, ip_rec, ip_solvers, sqp_scan = phase_ip(
+        x0s_np, IP_TRIALS, IP_SINGLE)
     stamp("ip")
+    # ---- the other grids, config 6 under MPC, the Kalman / dual-mode loop, bcr ----
+    grid_launches, grid_rec, grid_solvers = phase_grids(x0s_np, HS_TRIALS, HS_SINGLE)
+    stamp("grids")
+    hs_cl_k1, hs_cl_rec = phase_hs_closed_loop()
+    stamp("hs_closed_loop")
+    dm_k1, dm_rec = phase_dual_mode()
+    stamp("dual_mode")
+    bcr_rec = phase_bcr(*sqp_scan)
+    del sqp_scan
+    stamp("bcr")
     # each count from its own path's run; K1 and K4 carry one count per path
     k1_paths = {"sqp_config1": launches["boxqp_solve"], **nl_launches, "closed_loop": cl_k1,
-                "nonuniform_open_loop": nu_ol_k1, "nonuniform_closed_loop": nu_cl_k1}
+                "nonuniform_open_loop": nu_ol_k1, "nonuniform_closed_loop": nu_cl_k1,
+                **grid_launches, "hs_closed_loop": hs_cl_k1, "dual_mode_kalman": dm_k1}
     k4_paths = {"lm_config1": lm_launches["btridiag_factor_solve_inplace"], "closed_loop_lm": cl_k4,
                 **ip_launches}
     k3_paths = {"lm_config1_inplace_false": lm_launches["btridiag_factor_solve"], **ip_k3}
@@ -2536,6 +3152,8 @@ def main() -> int:
             raise AssertionError(f"kernel {r['name']} was not launched by its main path")
     if min(k1_paths.values()) <= 0:
         raise AssertionError(f"boxqp_solve was not launched by every path: {k1_paths}")
+    # K1's (6, 4) specialisation: launched by the uncompressed grid's path only
+    records.insert(1, nz6_kernel_record(nz6, k1_paths["hs_unc_config6"]))
 
     if opts.profile:
         from control_box_rst_tpu_torch.parallel import (
@@ -2595,6 +3213,7 @@ def main() -> int:
             prof["eager_kernels_per_ip_iteration"] = (
                 prof["n_device_kernels"] - k4[0]["launches"]) / k4[0]["launches"]
         log(json.dumps({"profile_ip": ip_prof}))
+        log(json.dumps({"profile_grids": profile_new_paths(grid_solvers, x0s_np)}))
         stamp("profile")
 
     # ---- 7 result ----
@@ -2603,6 +3222,10 @@ def main() -> int:
     log(json.dumps({"nonlinear": nl_rec}))
     log(json.dumps({"closed_loop": cl_rec}))
     log(json.dumps({"ip": ip_rec}))
+    log(json.dumps({"grids": grid_rec}))
+    log(json.dumps({"hs_closed_loop": hs_cl_rec}))
+    log(json.dumps({"dual_mode": dm_rec}))
+    log(json.dumps({"bcr": bcr_rec}))
     # last: the config-4 batch by the plain backend (see its docstring)
     nu_cl_rec["plain"] = phase_nonuniform_vs_plain(*nu_cl)
     stamp("nonuniform_vs_plain")

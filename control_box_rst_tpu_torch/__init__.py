@@ -27,7 +27,12 @@ the closed loop of config 5 (``parallel.make_batched_closed_loop`` →
 or LM at every MPC step, against ``sim.SimulatedPlant``), and config 4: the
 non-uniform time-optimal grid with a free dt per interval, open loop and
 under MPC with grid adaptation (``ocp.adaptation``), every lane its own
-active horizon through a per-lane stage mask.
+active horizon through a per-lane stage mask; constrained OCPs and the
+interior-point solver; every grid of the reference (the FD schemes and cost
+integrations, uncompressed Hermite-Simpson with the midpoints in the stage
+vector, move blocking) and block cyclic reduction; the LQR family
+(``ops.matrix_eq``, ``control.classic``, ``control.dual_mode``, the
+steady-state Kalman observer).
 """
 
 __version__ = "0.1.0"

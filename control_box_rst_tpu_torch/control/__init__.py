@@ -1,4 +1,12 @@
 from control_box_rst_tpu_torch.control.base import Controller, ControlOutput
+from control_box_rst_tpu_torch.control.classic import (
+    LqrController,
+    PidCarry,
+    PidController,
+    SimpleStateController,
+    StepResponseGenerator,
+)
+from control_box_rst_tpu_torch.control.dual_mode import DualModeCarry, DualModeController
 from control_box_rst_tpu_torch.control.predictive import (
     MPCCarry,
     PredictiveController,
@@ -10,4 +18,6 @@ from control_box_rst_tpu_torch.control.predictive import (
 __all__ = [
     "Controller", "ControlOutput", "PredictiveController", "MPCCarry",
     "find_nearest_state", "shift_warm_start", "shift_stage_rows",
+    "LqrController", "PidController", "PidCarry", "SimpleStateController",
+    "StepResponseGenerator", "DualModeController", "DualModeCarry",
 ]

@@ -17,7 +17,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from control_box_rst_tpu_torch.utils.tree import plain_dataclass
+from control_box_rst_tpu_torch.utils.tree import plain_dataclass, tree_to
 
 
 class ControlOutput(NamedTuple):
@@ -55,6 +55,10 @@ class Controller:
     def horizon(self) -> int:
         """Length of the produced u_seq (1 for static feedback)."""
         return 1
+
+    def to(self, device=None, dtype=None) -> "Controller":
+        """Copy with every tensor on ``device`` (floating ones as ``dtype``)."""
+        return tree_to(self, device, dtype)
 
     def _single(self, x, u, ok=True, info=None) -> ControlOutput:
         """The output of a static controller: u [B, nu] held for one

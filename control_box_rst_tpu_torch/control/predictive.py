@@ -217,6 +217,11 @@ class PredictiveController(Controller):
     def horizon(self) -> int:
         return self.ocp.N
 
+    def to(self, device=None, dtype=None) -> "PredictiveController":
+        """The controller rebuilt for ``device`` / ``dtype`` (``None``: the
+        card, float32): the OCP moved there and the structure hoisted again."""
+        return self.replace(device=device, dtype=dtype)
+
     def _initial_guess(self, x0: torch.Tensor) -> Trajectory:
         """Straight line x0 → xf, zero controls, dt = ``self.dt`` (clipped to
         the dt bounds of a variable-dt grid)."""

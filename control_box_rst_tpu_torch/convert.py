@@ -9,9 +9,12 @@ handed to the port — is a dict of numpy arrays and static fields (the form
 
   static:  N, nx, nu, system ("serial_integrators" with time_constant |
            "van_der_pol" with a), grid_kind ("fd" | "ms"),
-           fd_scheme ("crank_nicolson" | "forward"), integrator ("euler",
-           "rk2" … "rk7"), integrator_substeps, cost_integration,
-           dt_mode ("fixed" | "single" | "per_interval"),
+           fd_scheme ("forward" | "backward" | "midpoint" | "crank_nicolson"
+           | "hermite_simpson" | "hermite_simpson_lc" |
+           "hermite_simpson_unc"), integrator ("euler", "rk2" … "rk7"),
+           integrator_substeps, cost_integration, dt_mode ("fixed" |
+           "single" | "per_interval"), u_blocks (move blocking: a block id
+           per interval, or None),
            cost ("quadratic" | "minimum_time"),
            cost_integral, lsq_form
   cost:    "quadratic": Q [nx,nx], R [nu,nu], Qf [nx,nx] (Qf optional);
@@ -36,6 +39,14 @@ y_gen, y_box, u_prev, n_active, feas_prev), so that both packages can be
 handed the same mid-rollout carry. ``adaptation_from_numpy`` builds a grid
 adaptation from the class name of the reference's (``kind``) and its fields.
 
+The LQR family: ``lqr_from_numpy`` (K, xref, uref), ``pid_from_numpy`` (the
+gains, xref) with ``pid_carry_from_numpy`` (p_error, i_error),
+``dual_mode_carry_from_numpy`` (mpc_carry — an MPCCarry's fields —,
+local_carry, local_active) and ``kalman_from_numpy`` (Ad, Bd, C, L).
+``stage_matrix_from_numpy`` packs a trajectory (X, U, dts) into an OCP's
+stage matrix W with the midpoint slots of the uncompressed Hermite-Simpson
+grid (Xm) when it has them; a move-blocking grid comes with ``u_blocks``.
+
 Every function here takes ``dtype`` (``None`` means float32) and ``device``
 (``None`` means the card, and raises when there is none; the CPU has to be
 asked for with ``device="cpu"``).
@@ -49,7 +60,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from control_box_rst_tpu_torch.control.classic import LqrController, PidCarry, PidController
+from control_box_rst_tpu_torch.control.dual_mode import DualModeCarry
 from control_box_rst_tpu_torch.control.predictive import MPCCarry
+from control_box_rst_tpu_torch.sim.observer import KalmanCarry, SteadyStateKalmanObserver
 from control_box_rst_tpu_torch.ocp import adaptation as _adaptation
 from control_box_rst_tpu_torch.ocp import constraints as _constraints
 from control_box_rst_tpu_torch.ocp import costs as _costs
@@ -103,6 +117,8 @@ def ocp_from_numpy(spec: Mapping[str, Any], dtype=None,
         integrator_substeps=int(spec.get("integrator_substeps", 1)),
         cost_integration=spec.get("cost_integration", "left_sum"),
         dt_mode=spec.get("dt_mode", "fixed"),
+        u_blocks=(None if spec.get("u_blocks") is None
+                  else tuple(int(b) for b in spec["u_blocks"])),
     )
     integral = bool(spec.get("cost_integral", False))
     lsq_form = bool(spec.get("lsq_form", False))
@@ -249,3 +265,64 @@ def constraint_from_numpy(d: Mapping[str, Any], dtype=None, device=None):
         raise KeyError(f"unknown constraint {kind!r}; have {sorted(_CONSTRAINTS)}")
     cls = _CONSTRAINTS[kind]
     return cls(**_fields_from_numpy(cls, d, dtype, device))
+
+
+def stage_matrix_from_numpy(ocp: TranscribedOCP, d: Mapping[str, Any], dtype=None,
+                            device=None) -> torch.Tensor:
+    """The stage matrix W [..., N+1, nz] of ``ocp`` for the trajectory X, U,
+    dts of ``d``; on the uncompressed Hermite-Simpson grid the midpoint slots
+    take ``d["Xm"]`` [..., N+1, nx] (stage N's slot included) where given,
+    else ``pack``'s linear midpoints."""
+    W = ocp.pack(trajectory_from_numpy(d, dtype, device))
+    if ocp.n_aux and d.get("Xm") is not None:
+        W = W.clone()
+        W[..., ocp.nx + ocp.nu + 1:] = _tensor(d["Xm"], dtype, device)
+    return W
+
+
+def lqr_from_numpy(d: Mapping[str, Any], dtype=None, device=None) -> LqrController:
+    """An ``LqrController`` from its gain K [nu, nx] and xref, uref."""
+    K = _tensor(d["K"], dtype, device)
+    return LqrController(nx=K.shape[1], nu=K.shape[0], K=K,
+                         xref=_tensor(d["xref"], dtype, device),
+                         uref=_tensor(d["uref"], dtype, device))
+
+
+def pid_from_numpy(d: Mapping[str, Any], dtype=None, device=None) -> PidController:
+    """A ``PidController`` from nx, nu, its gains (numbers or arrays) and
+    xref (or None)."""
+    gain = lambda k: (float(np.asarray(d.get(k, 0.0))) if np.ndim(d.get(k, 0.0)) == 0
+                      else _tensor(d[k], dtype, device))
+    return PidController(nx=int(d["nx"]), nu=int(d["nu"]), p_gain=gain("p_gain"),
+                         i_gain=gain("i_gain"), d_gain=gain("d_gain"),
+                         xref=_tensor(d.get("xref"), dtype, device))
+
+
+def pid_carry_from_numpy(d: Mapping[str, Any], dtype=None, device=None) -> PidCarry:
+    return PidCarry(p_error=_tensor(d["p_error"], dtype, device),
+                    i_error=_tensor(d["i_error"], dtype, device))
+
+
+def dual_mode_carry_from_numpy(d: Mapping[str, Any], dtype=None,
+                               device=None) -> DualModeCarry:
+    """A ``DualModeCarry``: ``mpc_carry`` the fields of an ``MPCCarry``,
+    ``local_carry`` those of a ``PidCarry`` or None (an LQR carries
+    nothing), ``local_active`` bool [B]."""
+    local = d.get("local_carry")
+    return DualModeCarry(
+        mpc_carry=mpc_carry_from_numpy(d["mpc_carry"], dtype, device),
+        local_carry=() if not local else pid_carry_from_numpy(local, dtype, device),
+        local_active=torch.as_tensor(np.array(d["local_active"]),
+                                     device=resolve_device(device)).to(torch.bool),
+    )
+
+
+def kalman_from_numpy(d: Mapping[str, Any], dtype=None,
+                      device=None) -> SteadyStateKalmanObserver:
+    """A ``SteadyStateKalmanObserver`` from Ad, Bd, C and its gain L."""
+    return SteadyStateKalmanObserver(**{k: _tensor(d[k], dtype, device)
+                                        for k in ("Ad", "Bd", "C", "L")})
+
+
+def kalman_carry_from_numpy(d: Mapping[str, Any], dtype=None, device=None) -> KalmanCarry:
+    return KalmanCarry(x_hat=_tensor(d["x_hat"], dtype, device))

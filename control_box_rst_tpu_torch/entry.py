@@ -30,6 +30,21 @@ rollouts(N)  → (controller, plant, T_steps, dt): config 5 — the config-1
                0.1; ``parallel.make_batched_closed_loop`` takes it.
 rollouts_ip(N) → the same with the interior-point controller
                (``flagship_ip``'s settings).
+hermite_simpson(N) → (ocp, cfg): config 6 (``examples/config6_hermite_
+               simpson.yaml``) — Van der Pol, Hermite-Simpson defects, the
+               Simpson cost (integral), |u| ≤ 2, dt 0.1, open loop.
+hermite_simpson_unc(N) → (ocp, cfg): the same OCP on the uncompressed
+               Hermite-Simpson grid (midpoints in the stage vector: nz 6,
+               nc 4 on Van der Pol).
+rollouts_hs(N) → (controller, plant, T_steps=40, dt=0.1): config 6 under a
+               PredictiveController against the simulated Van der Pol.
+move_blocking(N) → (ocp, cfg): config 1 with its controls blocked in ten
+               blocks of N/10 intervals.
+kalman_dual_mode(N) → (controller, plant, T_steps=60, dt=0.1, observer):
+               config 5 of ``examples/config5_kalman_dual_mode.yaml`` — the
+               double integrator measured in its first state with noise, a
+               steady-state Kalman filter, MPC handing over to an LQR inside
+               a terminal ball.
 entry()      → (fn, example_args): the batched MPC solve on that config.
 """
 from __future__ import annotations
@@ -45,6 +60,10 @@ from control_box_rst_tpu_torch.utils.precision import resolve_device, resolve_dt
 # within 1e-3 of the float64 oracle (tools/ip_calibration.py; PERF.md §2)
 IP_F32_CONFIG1 = dict(tol=7e-6, max_iter=80)
 IP_F32_CONSTRAINED_DI = dict(tol=1e-5, max_iter=200)
+# float32 SQP settings of Van der Pol, configs 2 and 6: the stationarity
+# residual stalls near 1e-4 (the ADMM dual floor at QP tolerance 1e-5)
+VDP_F32_SQP = dict(tol_stat=1e-4, tol_feas=1e-5)
+VDP_F32_QP = dict(max_iter=60, iters_per_round=30, tol=1e-5)
 
 
 def flagship(N: int = 50, dtype=None, device=None):
@@ -166,13 +185,7 @@ def vdp_ms(N: int = 20, dtype=None, device=None):
     bounds = Bounds.unbounded(2, 1, **kw).with_u(-1.0, 1.0).with_dt(0.1, 0.1)
     ocp = transcribe(VanDerPolOscillator(), grid, cost, bounds=bounds,
                      x0=torch.zeros(2, **kw), **kw)
-    # float32-calibrated: the stationarity residual stalls near 1e-4 (the
-    # ADMM dual floor at QP tolerance 1e-5)
-    cfg = SQPConfig(
-        max_iter=20,
-        qp=QPConfig(max_iter=60, iters_per_round=30, tol=1e-5),
-        tol_stat=1e-4, tol_feas=1e-5,
-    )
+    cfg = SQPConfig(max_iter=20, qp=QPConfig(**VDP_F32_QP), **VDP_F32_SQP)
     return ocp, cfg
 
 
@@ -294,6 +307,130 @@ def rollouts_ip(N: int = 50, dtype=None, device=None):
     ctrl, plant, T, dt = rollouts(N, dtype=dtype, device=device)
     _, ip_cfg = flagship_ip(N, dtype=dtype, device=device)
     return ctrl.replace(solver="ip", ip_cfg=ip_cfg), plant, T, dt
+
+
+def _config6_ocp(grid, dtype, device):
+    from control_box_rst_tpu_torch.models import VanDerPolOscillator
+    from control_box_rst_tpu_torch.ocp import (
+        Bounds,
+        CompositeCost,
+        QuadraticFinalStateCost,
+        QuadraticFormCost,
+        transcribe,
+    )
+
+    kw = dict(dtype=resolve_dtype(dtype), device=resolve_device(device))
+    # the YAML's `integral: true`: the Simpson rule applies to the whole
+    # composite (the final-state term has no stage part)
+    cost = CompositeCost(costs=(
+        QuadraticFormCost(Q=torch.eye(2, **kw), R=0.1 * torch.eye(1, **kw), integral=True),
+        QuadraticFinalStateCost(Qf=5.0 * torch.eye(2, **kw)),
+    ), integral=True)
+    bounds = Bounds.unbounded(2, 1, **kw).with_u(-2.0, 2.0).with_dt(0.1, 0.1)
+    return transcribe(VanDerPolOscillator(), grid, cost, bounds=bounds,
+                      x0=torch.tensor([1.0, 0.5], **kw), **kw)
+
+
+def hermite_simpson(N: int = 20, dtype=None, device=None):
+    """Config 6 (``examples/config6_hermite_simpson.yaml``): Van der Pol on
+    ``finite_differences_grid(N, 'hermite_simpson', cost_integration=
+    'hermite_simpson')``, Q = I, R = 0.1 integral (Simpson rule on the
+    Hermite midpoint), Qf = 5·I, |u| ≤ 2, dt pinned at 0.1, x0 = [1, 0.5]
+    (a batch replaces it), with its float32 solver settings: config 2's
+    tolerances and 20 SQP iterations (for a cold start from the straight
+    line; the YAML's 10 is the closed loop's per-step budget,
+    ``rollouts_hs``). ``dtype`` / ``device`` as in ``flagship``."""
+    from control_box_rst_tpu_torch.ocp import finite_differences_grid
+    from control_box_rst_tpu_torch.solvers import QPConfig, SQPConfig
+
+    grid = finite_differences_grid(N, fd_scheme="hermite_simpson",
+                                   cost_integration="hermite_simpson")
+    cfg = SQPConfig(max_iter=20, qp=QPConfig(**VDP_F32_QP), **VDP_F32_SQP)
+    return _config6_ocp(grid, dtype, device), cfg
+
+
+def hermite_simpson_unc(N: int = 20, dtype=None, device=None):
+    """Config 6's OCP on ``hermite_simpson_uncompressed_grid(N)``: the
+    interval midpoints are decision variables in the stage vector (w_k =
+    [x; u; dt; xm], nz 6) with their interpolation rows (nc 4), and the
+    Simpson cost evaluates them; the solution equals ``hermite_simpson``'s.
+    Settings as there."""
+    from control_box_rst_tpu_torch.ocp import hermite_simpson_uncompressed_grid
+    from control_box_rst_tpu_torch.solvers import QPConfig, SQPConfig
+
+    cfg = SQPConfig(max_iter=20, qp=QPConfig(**VDP_F32_QP), **VDP_F32_SQP)
+    return _config6_ocp(hermite_simpson_uncompressed_grid(N), dtype, device), cfg
+
+
+def rollouts_hs(N: int = 20, dtype=None, device=None):
+    """Config 6 under MPC, as its YAML runs it: ``hermite_simpson(N)``'s OCP
+    with the YAML's 10 SQP iterations a step (float32 tolerances as there)
+    in a ``PredictiveController`` against the simulated Van der Pol (RK4, 4
+    substeps, no noise), 40 steps of 0.1. Returns (controller, plant,
+    T_steps, dt); ``dtype`` / ``device`` as in ``flagship``."""
+    from control_box_rst_tpu_torch.control import PredictiveController
+    from control_box_rst_tpu_torch.models import VanDerPolOscillator
+    from control_box_rst_tpu_torch.sim import SimulatedPlant
+
+    ocp, cfg = hermite_simpson(N, dtype=dtype, device=device)
+    ctrl = PredictiveController(
+        nx=2, nu=1, ocp=ocp, dt=0.1, cfg=cfg.replace(max_iter=10), device=device, dtype=dtype)
+    return ctrl, SimulatedPlant(system=VanDerPolOscillator()), 40, 0.1
+
+
+def move_blocking(N: int = 50, dtype=None, device=None):
+    """Config 1 (``flagship(N)``'s OCP and settings) on
+    ``move_blocking_grid(N, [N // 10] * 10)``: u_{k+1} = u_k inside each of
+    ten blocks, as tie rows (nc = nx + nu = 3). LTI with a constant Hessian,
+    so the solve is the one-shot in the box-QP kernel on one shared copy of
+    Hd/J/K. ``dtype`` / ``device`` as in ``flagship``."""
+    from control_box_rst_tpu_torch.ocp import move_blocking_grid
+
+    if N % 10:
+        raise ValueError(f"N={N}: ten blocks of equal length need N divisible by 10")
+    ocp, cfg = flagship(N, dtype=dtype, device=device)
+    # the tie rows are held to tol_feas: 1e-6 keeps a block's controls equal to
+    # 1e-6 in float32. At config 1's 1e-5 they spread up to 2.5e-6 in the JAX
+    # package's own float32 run too (tools/config6_calibration.py, move_blocking)
+    return ocp.replace(grid=move_blocking_grid(N, [N // 10] * 10)), cfg.replace(tol_feas=1e-6)
+
+
+def kalman_dual_mode(N: int = 30, dtype=None, device=None):
+    """Config 5 of ``examples/config5_kalman_dual_mode.yaml``: the double
+    integrator (CN, N intervals of 0.1, Q = I, R = 0.1, Qf = 10·I, |u| ≤ 1 —
+    config 1's OCP at N = 30) under a ``DualModeController``: MPC (the YAML's
+    8 SQP iterations a step, config 1's float32 tolerances) hands over to an
+    LQR (Q = I, R = 1) inside the ball xᵀ S x ≤ γ (S = I, γ = 0.09), latched.
+    The plant (RK4, 4 substeps) is measured in its first state with output
+    noise of std 0.02; a steady-state Kalman filter (V = 4e-4, W its 1e-3·I
+    default) on the ZOH-discretized linearization reconstructs the state.
+    Returns (controller, plant, T_steps=60, dt=0.1, observer); the noise is
+    drawn from the generator the rollout is given. ``dtype`` / ``device`` as
+    in ``flagship``."""
+    from control_box_rst_tpu_torch.control import (
+        DualModeController,
+        LqrController,
+        PredictiveController,
+    )
+    from control_box_rst_tpu_torch.models import DoubleIntegratorContinuous
+    from control_box_rst_tpu_torch.sim import GaussianNoise, SimulatedPlant
+    from control_box_rst_tpu_torch.sim.observer import SteadyStateKalmanObserver
+
+    dtype, device = resolve_dtype(dtype), resolve_device(device)
+    kw = dict(dtype=dtype, device=device)
+    ocp, cfg = flagship(N, **kw)
+    ocp = ocp.replace(bc=ocp.bc.replace(x0=torch.tensor([1.0, 0.0], **kw)))
+    system = DoubleIntegratorContinuous()
+    mpc = PredictiveController(nx=2, nu=1, ocp=ocp, dt=0.1, cfg=cfg.replace(max_iter=8), **kw)
+    local = LqrController.from_system(system, torch.eye(2), torch.eye(1), **kw)
+    ctrl = DualModeController(
+        nx=2, nu=1, global_controller=mpc, local_controller=local,
+        S=torch.eye(2, **kw), gamma=0.09, xf=torch.zeros(2, **kw), latch=True)
+    plant = SimulatedPlant(system=system, output_kind="first",
+                           output_noise=GaussianNoise(std=0.02))
+    observer = SteadyStateKalmanObserver.from_plant(
+        plant, 0.1, V=torch.tensor([[4e-4]], dtype=torch.float64), **kw)
+    return ctrl, plant, 60, 0.1, observer
 
 
 def entry(device=None):

@@ -34,6 +34,8 @@ from control_box_rst_tpu_torch.ocp.grids import (
     Grid,
     finite_differences_grid,
     finite_differences_variable_grid,
+    hermite_simpson_uncompressed_grid,
+    move_blocking_grid,
     multiple_shooting_grid,
     multiple_shooting_variable_grid,
     non_uniform_fd_variable_grid,
@@ -67,6 +69,7 @@ __all__ = [
     "TerminalPartialEquality", "terminal_partial_equality",
     "StagePreprocessor", "PreprocessedStageCost", "PreprocessedStageConstraint",
     "Grid", "finite_differences_grid", "finite_differences_variable_grid",
+    "hermite_simpson_uncompressed_grid", "move_blocking_grid",
     "multiple_shooting_grid", "multiple_shooting_variable_grid",
     "non_uniform_fd_variable_grid", "non_uniform_multiple_shooting_variable_grid",
     "Trajectory", "Bounds", "References", "BoundaryConditions",

@@ -12,8 +12,8 @@ The least-squares form for the Gauss-Newton / Levenberg-Marquardt solver is
 matrix square roots it needs are taken once, when the cost object is built
 (on the host, in float64), not per evaluation.
 
-``riccati_terminal_cost`` needs the algebraic Riccati solvers of
-``ops/matrix_eq.py``, which the port does not carry yet: it raises by name.
+``riccati_terminal_cost`` takes Qf from the algebraic Riccati equation
+(``ops/matrix_eq.py``) at the linearization, once, when it is built.
 """
 from __future__ import annotations
 
@@ -234,10 +234,20 @@ class MinTimeQuadraticGainScheduled(StageCost):
 
 
 def riccati_terminal_cost(system, xref, uref, Q, R, dt=None):
-    """Qf from the algebraic Riccati equation at (xref, uref): not ported."""
-    raise NotImplementedError(
-        "riccati_terminal_cost needs ops/matrix_eq.py (the CARE/DARE solvers), "
-        "which is not ported yet (periphery slice F)")
+    """Qf from the algebraic Riccati equation at the linearization
+    (xref [nx], uref [nu]): the CARE of a continuous-time system, the DARE of
+    a discrete one — the stabilizing cost-to-go, which makes the
+    finite-horizon cost a quasi-infinite-horizon one. Returns a
+    ``QuadraticFinalStateCost`` in the dtype and on the device of ``xref``
+    (``dt`` is accepted and, as in the reference, not used)."""
+    from control_box_rst_tpu_torch.ops.matrix_eq import solve_care, solve_dare
+
+    xref = torch.as_tensor(xref)
+    uref = torch.as_tensor(uref, dtype=xref.dtype, device=xref.device)
+    A = system.linear_A(xref, uref)
+    B = system.linear_B(xref, uref)
+    solve = solve_care if system.continuous_time else solve_dare
+    return QuadraticFinalStateCost(Qf=solve(A, B, Q, R))
 
 
 @plain_dataclass

@@ -4,7 +4,9 @@ Counterpart of the JAX package's ``ocp/transcribe.py``.
 
 Canonical form ("stage NLP"): decision variables are W ∈ [N+1, nz] with
 w_k = [x_k ; u_k ; dt_k] (nz = nx+nu+1; unused components are pinned via
-``fixed_mask``). The NLP is
+``fixed_mask``), and on the uncompressed Hermite-Simpson grid the interval
+midpoint state appended, w_k = [x_k ; u_k ; dt_k ; xm_k] (``n_aux`` = nx).
+The NLP is
 
   min  Σ_{k<N} stage_term_k(w_k, w_{k+1})  +  final(x_N)
   s.t. c_k(w_k, w_{k+1}) = 0                      k < N   (defect + tie rows)
@@ -34,17 +36,23 @@ General rows: a ``StageConstraint`` gives every interval k < N its rows
 width ng = max(ng_stage, ng_term). Equality rows have bounds [0, 0],
 inequality rows (−inf, 0], padding rows (−inf, +inf).
 
-Ported so far: finite-difference and multiple-shooting grids, with dt pinned,
-with one dt tied across the intervals (tie rows dt_{k+1} − dt_k = 0 for
-k < N−1), or with a free dt per interval (no tie rows, nc = nx), left-sum /
-trapezoidal cost integration, and general rows. Move blocking and the
-schemes, integrators and cost integrations that later slices bring are
-refused at construction.
+Interval rows: the defect of the grid's scheme (every FD scheme, the
+linear-control Hermite-Simpson scheme reading the next stage's control, the
+uncompressed Hermite-Simpson rows with their midpoint tie, multiple
+shooting), then tie rows: dt_{k+1} − dt_k = 0 for k < N−1 on a grid with one
+dt tied across the intervals, and u_{k+1} − u_k = 0 inside each block of a
+move-blocking grid (its last interval's rows are zero). nc = nx + n_aux +
+n_tie. Cost integration: left sum, trapezoidal, Hermite-Simpson (with the
+Hermite midpoint, piecewise-constant or linear control) and Simpson on the
+decision midpoint. Integrators the port does not carry are refused at
+construction.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from control_box_rst_tpu_torch.models.base import SystemDynamics
@@ -56,14 +64,23 @@ from control_box_rst_tpu_torch.ocp.problem import (
     References,
     Trajectory,
 )
-from control_box_rst_tpu_torch.ops.collocation import get_fd_collocation
+from control_box_rst_tpu_torch.ops.collocation import (
+    get_fd_collocation,
+    hermite_simpson_lc_defect,
+    hermite_simpson_unc_rows,
+)
 from control_box_rst_tpu_torch.ops.integrators import make_integrator
 from control_box_rst_tpu_torch.utils.precision import resolve_device, resolve_dtype
 from control_box_rst_tpu_torch.utils.tree import plain_dataclass, tree_to
 
-_COST_INTEGRATIONS = ("left_sum", "trapezoidal")
+_COST_INTEGRATIONS = ("left_sum", "trapezoidal", "hermite_simpson",
+                      "hermite_simpson_lc", "hermite_simpson_unc")
+# cost integrations whose interval term reads x_{k+1}: the Hessian block of
+# stage k then sums the terms of intervals k and k−1
+_COUPLED_INTEGRATIONS = _COST_INTEGRATIONS[1:]
+# schemes the transcription evaluates itself (not through get_fd_collocation)
+_OWN_SCHEMES = ("hermite_simpson_lc", "hermite_simpson_unc")
 _DT_MODES = ("fixed", "single", "per_interval")
-
 
 def _vmap_over_lead(fn, lead_ndim: int, n_batched: int, n_shared: int):
     """vmap ``fn`` (already vmapped over stages) over ``lead_ndim`` leading
@@ -92,6 +109,10 @@ class TranscribedOCP:
     # every lane; made here from ``stage_mask``'s device and dtype, and made
     # again whenever a ``replace`` or ``to`` changes N, the device or the dtype.
     tie_mask: Optional[torch.Tensor] = None
+    # [N, nu] 1.0 where interval k ties u_{k+1} to u_k inside a move-blocking
+    # block (the last row zero; all zero without move blocking). Made like
+    # ``tie_mask``, and again whenever a ``replace`` changes the grid.
+    u_tie_mask: Optional[torch.Tensor] = None
 
     def __post_init__(self):
         g, m, t = self.grid, self.stage_mask, self.tie_mask
@@ -100,25 +121,36 @@ class TranscribedOCP:
             object.__setattr__(
                 self, "tie_mask",
                 (torch.arange(g.N, device=m.device) < g.N - 1).to(m.dtype))
+        ut, nu = self.u_tie_mask, self.system.nu
+        if (ut is None or ut.shape != (g.N, nu) or ut.device != m.device
+                or ut.dtype != m.dtype):
+            # raises on a bad block sequence
+            rows = np.concatenate([g.u_tie_mask(nu), np.zeros((1, nu))])
+            object.__setattr__(
+                self, "u_tie_mask",
+                torch.as_tensor(rows).to(device=m.device, dtype=m.dtype)
+                if g.has_u_tie else torch.zeros((g.N, nu), device=m.device, dtype=m.dtype))
         if g.kind not in ("fd", "ms"):
             raise ValueError(f"unknown grid kind {g.kind!r}")
         if self.system.continuous_time:
-            # raise for unported schemes and integrators
+            # raise for unknown schemes and unported integrators
             if g.kind == "fd":
-                get_fd_collocation(g.fd_scheme)
+                if g.fd_scheme not in _OWN_SCHEMES:
+                    get_fd_collocation(g.fd_scheme)
             else:
                 make_integrator(g.integrator, g.integrator_substeps)
         if g.dt_mode not in _DT_MODES:
             raise ValueError(f"unknown dt_mode {g.dt_mode!r}; have {list(_DT_MODES)}")
-        if g.has_u_tie:
-            raise NotImplementedError(
-                "move blocking is not ported yet (other-grids slice)"
-            )
         if self.cost.integral and g.cost_integration not in _COST_INTEGRATIONS:
-            raise NotImplementedError(
-                f"cost integration {g.cost_integration!r} is not ported yet; "
-                f"have {_COST_INTEGRATIONS}"
+            raise KeyError(
+                f"unknown cost integration {g.cost_integration!r}; "
+                f"have {list(_COST_INTEGRATIONS)}"
             )
+        if g.cost_integration == "hermite_simpson_unc" and self.cost.integral \
+                and not self.n_aux:
+            raise ValueError(
+                "cost integration 'hermite_simpson_unc' needs the midpoint slots "
+                "of the uncompressed Hermite-Simpson grid (a continuous-time system)")
 
     # ---------------- dimensions ----------------
     @property
@@ -134,18 +166,30 @@ class TranscribedOCP:
         return self.system.nu
 
     @property
+    def n_aux(self) -> int:
+        """Auxiliary per-stage decision states appended after [x;u;dt]: the
+        uncompressed Hermite-Simpson scheme stores interval k's midpoint
+        state in stage k, which keeps every interval row coupled to two
+        stages (and the KKT system block-tridiagonal)."""
+        g = self.grid
+        unc = g.kind == "fd" and g.fd_scheme == "hermite_simpson_unc"
+        return self.nx if unc and self.system.continuous_time else 0
+
+    @property
     def nz(self) -> int:
-        return self.nx + self.nu + 1
+        return self.nx + self.nu + 1 + self.n_aux
 
     @property
     def n_tie(self) -> int:
-        """Tie rows per interval: one for a dt tied across the intervals."""
-        return 1 if self.grid.has_dt_tie else 0
+        """Tie rows per interval: one for a dt tied across the intervals, nu
+        for move blocking."""
+        return (1 if self.grid.has_dt_tie else 0) + (
+            self.nu if self.grid.has_u_tie else 0)
 
     @property
     def nc(self) -> int:
-        """Interval equality rows: defect + ties."""
-        return self.nx + self.n_tie
+        """Interval equality rows: defect (+ midpoint ties) + ties."""
+        return self.nx + self.n_aux + self.n_tie
 
     @property
     def ng_stage(self) -> int:
@@ -179,7 +223,10 @@ class TranscribedOCP:
     # ---------------- packing ----------------
     def pack(self, traj: Trajectory) -> torch.Tensor:
         """Trajectory → W [..., N+1, nz]. Stage N gets dummy u/dt (zeros).
-        X, U and dts may carry different leading dims; they broadcast."""
+        X, U and dts may carry different leading dims; they broadcast. The
+        midpoint slots (uncompressed Hermite-Simpson) start at the linear
+        midpoints (x_k + x_{k+1})/2, stage N's at x_N; from then on they are
+        decision variables of W."""
         X, U, dts = traj.X, traj.U, traj.dts
         lead = torch.broadcast_shapes(X.shape[:-2], U.shape[:-2], dts.shape[:-1])
         X = X.expand(lead + X.shape[-2:])
@@ -187,7 +234,11 @@ class TranscribedOCP:
         dts = dts.expand(lead + dts.shape[-1:])
         U_pad = torch.cat([U, U.new_zeros(lead + (1, self.nu))], dim=-2)
         dt_pad = torch.cat([dts, dts.new_zeros(lead + (1,))], dim=-1)
-        return torch.cat([X, U_pad, dt_pad[..., None]], dim=-1)
+        cols = [X, U_pad, dt_pad[..., None]]
+        if self.n_aux:
+            Xm = 0.5 * (X[..., :-1, :] + X[..., 1:, :])
+            cols.append(torch.cat([Xm, X[..., -1:, :]], dim=-2))
+        return torch.cat(cols, dim=-1)
 
     def unpack(self, W: torch.Tensor) -> Trajectory:
         nx, nu = self.nx, self.nu
@@ -200,43 +251,71 @@ class TranscribedOCP:
         return w[..., :nx], w[..., nx:nx + nu], w[..., nx + nu]
 
     # ---------------- defect ----------------
+    def _reads_next_control(self) -> bool:
+        """Does the defect read the next stage's control? Only the
+        linear-control Hermite-Simpson scheme does."""
+        g = self.grid
+        return (g.kind == "fd" and g.fd_scheme == "hermite_simpson_lc"
+                and self.system.continuous_time)
+
     def _defect_fn(self):
-        """Returns defect(x, u, x1, dt) for the grid's scheme."""
+        """Returns defect(x, u, x1, u1, dt) for the grid's scheme; ``u1`` is
+        the next stage's control, which only the linear-control
+        Hermite-Simpson scheme reads."""
         g = self.grid
         f = self.system
         if not f.continuous_time:
             # discrete-time system: x⁺ = f(x, u); one-step defect, both kinds
-            return lambda x, u, x1, dt: f(x, u) - x1
+            return lambda x, u, x1, u1, dt: f(x, u) - x1
         if g.kind == "ms":
             integ = make_integrator(g.integrator, g.integrator_substeps)
-            return lambda x, u, x1, dt: integ.solve_ivp(f, x, u, dt) - x1
+            return lambda x, u, x1, u1, dt: integ.solve_ivp(f, x, u, dt) - x1
+        if g.fd_scheme == "hermite_simpson_lc":
+            return lambda x, u, x1, u1, dt: hermite_simpson_lc_defect(f, x, u, x1, u1, dt)
         scheme = get_fd_collocation(g.fd_scheme)
-        return lambda x, u, x1, dt: scheme(f, x, u, x1, dt)
+        return lambda x, u, x1, u1, dt: scheme(f, x, u, x1, dt)
 
-    def interval_residual(self, w, w1, m, tie):
+    def interval_residual(self, w, w1, m, tie, utie):
         """c_k(w_k, w_{k+1}) ∈ R^nc: masked defect + tie rows. ``w``, ``w1``
         [..., nz] are the two stages of an interval, ``m`` [...] its
-        stage-mask entry, ``tie`` [...] its ``tie_mask`` entry."""
+        stage-mask entry, ``tie`` [...] its ``tie_mask`` entry (k < N−1),
+        ``utie`` [..., nu] its row of ``u_tie_mask``."""
         nx, nu = self.nx, self.nu
         x, u, dt = self.split_w(w, nx, nu)
         x1 = w1[..., :nx]
         # guard: inactive intervals may carry dt = 0, and FD defects divide
         # by dt — evaluate them at a safe dt (the result is masked out)
         dt_safe = torch.where(m > 0, dt, torch.ones_like(dt))
-        defect = self._defect_fn()(x, u, x1, dt_safe)
-        # inactive interval → identity chain (keeps the tail pinned)
         mm = m[..., None]
-        defect = mm * defect + (1.0 - mm) * (x1 - x)
-        if not self.grid.has_dt_tie:
-            return defect
-        dt1 = w1[..., nx + nu]
-        return torch.cat([defect, (tie * (dt1 - dt))[..., None]], dim=-1)
+        if self.n_aux:
+            xm = w[..., nx + nu + 1:]
+            unc = hermite_simpson_unc_rows(self.system, x, xm, u, x1, dt_safe)
+            # inactive interval → identity chain, midpoint pinned to x
+            idle = torch.cat([x1 - x, xm - x], dim=-1)
+            rows = [mm * unc + (1.0 - mm) * idle]
+        else:
+            u1 = u
+            if self._reads_next_control():
+                # the next stage's control; the last interval takes its own
+                # (stage N carries a pinned dummy control)
+                t1 = tie[..., None]
+                u1 = t1 * w1[..., nx:nx + nu] + (1.0 - t1) * u
+            defect = self._defect_fn()(x, u, x1, u1, dt_safe)
+            # inactive interval → identity chain (keeps the tail pinned)
+            rows = [mm * defect + (1.0 - mm) * (x1 - x)]
+        if self.grid.has_dt_tie:
+            dt1 = w1[..., nx + nu]
+            rows.append((tie * (dt1 - dt))[..., None])
+        if self.grid.has_u_tie:
+            rows.append(utie * (w1[..., nx:nx + nu] - u))
+        return torch.cat(rows, dim=-1) if len(rows) > 1 else rows[0]
 
     def interval_residuals(self, W: torch.Tensor) -> torch.Tensor:
         """[..., N, nc] all interval equality rows."""
         W = self.with_mask_lanes(W)
         return self.interval_residual(
-            W[..., :-1, :], W[..., 1:, :], self.stage_mask, self.tie_mask
+            W[..., :-1, :], W[..., 1:, :], self.stage_mask, self.tie_mask,
+            self.u_tie_mask,
         )
 
     def defects(self, traj: Trajectory) -> torch.Tensor:
@@ -250,39 +329,69 @@ class TranscribedOCP:
         m = self.stage_mask
         jac = torch.func.jacfwd(self.interval_residual, argnums=(0, 1))
         fn = torch.func.vmap(jac)  # over stages
-        # a per-lane mask goes with the lanes; the tie mask is shared
+        # a per-lane mask goes with the lanes; the tie masks are shared
         n_lane = 3 if self.per_lane_mask else 2
         if self.per_lane_mask:
             m = m.expand(W.shape[:-2] + m.shape[-1:])
-        fn = _vmap_over_lead(fn, W.dim() - 2, n_lane, 4 - n_lane)
-        J, K = fn(W[..., :-1, :], W[..., 1:, :], m, self.tie_mask)
+        fn = _vmap_over_lead(fn, W.dim() - 2, n_lane, 5 - n_lane)
+        J, K = fn(W[..., :-1, :], W[..., 1:, :], m, self.tie_mask, self.u_tie_mask)
         return J, K, self.interval_residuals(W)
 
     # ---------------- cost ----------------
-    def _stage_term(self, w, w1, xref, xref1, uref, m):
-        """Cost contribution of one interval (uses w_k and, for trapezoidal
-        integration, x_{k+1}); all operands broadcast over leading dims."""
+    def _stage_term(self, w, w1, xref, xref1, uref, m, tie):
+        """Cost contribution of one interval (uses w_k and, for the coupled
+        integrations, stage k+1); all operands broadcast over leading dims.
+        ``tie`` [...] is the interval's ``tie_mask`` entry (k < N−1): the
+        linear-control Hermite-Simpson rule reads the next control there."""
         nx, nu = self.nx, self.nu
         x, u, dt = self.split_w(w, nx, nu)
         c = self.cost
-        if c.integral:
-            if self.grid.cost_integration == "trapezoidal":
-                x1 = w1[..., :nx]
-                val = 0.5 * dt * (
-                    c.stage(x, u, dt, xref, uref)
-                    + c.stage(x1, u, dt, xref1, uref)
-                )
-            else:  # left_sum (anything else was refused at construction)
-                val = dt * c.stage(x, u, dt, xref, uref)
-        else:
+        rule = self.grid.cost_integration
+        if not c.integral:
             val = c.stage(x, u, dt, xref, uref)
+        elif rule == "trapezoidal":
+            x1 = w1[..., :nx]
+            val = 0.5 * dt * (
+                c.stage(x, u, dt, xref, uref)
+                + c.stage(x1, u, dt, xref1, uref)
+            )
+        elif rule == "hermite_simpson_unc":
+            # Simpson rule on the decision-variable midpoint
+            x1 = w1[..., :nx]
+            xm = w[..., nx + nu + 1:]
+            xrefm = 0.5 * (xref + xref1)
+            val = (dt / 6.0) * (
+                c.stage(x, u, dt, xref, uref)
+                + 4.0 * c.stage(xm, u, dt, xrefm, uref)
+                + c.stage(x1, u, dt, xref1, uref)
+            )
+        elif rule in ("hermite_simpson", "hermite_simpson_lc"):
+            # Simpson rule with the Hermite-interpolated midpoint; the _lc
+            # rule interpolates the control linearly
+            x1 = w1[..., :nx]
+            u1 = u
+            if rule == "hermite_simpson_lc":
+                t1 = tie[..., None]
+                u1 = t1 * w1[..., nx:nx + nu] + (1.0 - t1) * u
+            um = 0.5 * (u + u1)
+            xm = 0.5 * (x + x1)
+            if self.system.continuous_time:
+                xm = xm + (dt[..., None] / 8.0) * (self.system(x, u) - self.system(x1, u1))
+            xrefm = 0.5 * (xref + xref1)
+            val = (dt / 6.0) * (
+                c.stage(x, u, dt, xref, uref)
+                + 4.0 * c.stage(xm, um, dt, xrefm, uref)
+                + c.stage(x1, u1, dt, xref1, uref)
+            )
+        else:  # left_sum (unknown rules were refused at construction)
+            val = dt * c.stage(x, u, dt, xref, uref)
         return m * val
 
     def objective_from_W(self, W: torch.Tensor) -> torch.Tensor:
         xref, uref = self.refs.xref, self.refs.uref
         stage_sum = self._stage_term(
             W[..., :-1, :], W[..., 1:, :], xref[:-1], xref[1:], uref,
-            self.stage_mask,
+            self.stage_mask, self.tie_mask,
         ).sum(dim=-1)
         final = self.cost.final(W[..., -1, : self.nx], xref[-1])
         return stage_sum + final
@@ -305,8 +414,9 @@ class TranscribedOCP:
 
         Exact per-stage Hessian of φ_k(v) = all objective terms touching
         stage k, with neighboring stages frozen. Cross-stage cost coupling
-        (trapezoidal integration) is dropped from the Hessian — but NOT from
-        the gradient — which preserves exact KKT solutions."""
+        (trapezoidal and Hermite-Simpson integration) is dropped from the
+        Hessian — but NOT from the gradient — which preserves exact KKT
+        solutions."""
         N, nx = self.N, self.nx
         W = self.with_mask_lanes(W)
         dev, dtype = W.device, W.dtype
@@ -317,13 +427,14 @@ class TranscribedOCP:
         left = (ks < N).to(dtype)
         right = (ks > 0).to(dtype)
         is_term = (ks == N).to(dtype)
-        couples = self.cost.integral and self.grid.cost_integration == "trapezoidal"
+        couples = self.cost.integral and self.grid.cost_integration in _COUPLED_INTEGRATIONS
         xref_N = xref[-1]
+        tie = self.tie_mask
 
-        def phi(v, wp, wn, ml, mr, lf, rt, tm, xl, xl1, ul, xr, xr1, ur):
-            total = lf * self._stage_term(v, wn, xl, xl1, ul, ml)
+        def phi(v, wp, wn, ml, mr, lf, rt, tm, xl, xl1, ul, xr, xr1, ur, tl, tr):
+            total = lf * self._stage_term(v, wn, xl, xl1, ul, ml, tl)
             if couples:
-                total = total + rt * self._stage_term(wp, v, xr, xr1, ur, mr)
+                total = total + rt * self._stage_term(wp, v, xr, xr1, ur, mr, tr)
             return total + tm * self.cost.final(v[..., :nx], xref_N)
 
         pad = torch.zeros_like(W[..., :1, :])
@@ -334,10 +445,11 @@ class TranscribedOCP:
         n_lane = 5 if self.per_lane_mask else 3
         if self.per_lane_mask:
             mask = mask.expand(W.shape[:-2] + mask.shape[-1:])
-        fn = _vmap_over_lead(fn, W.dim() - 2, n_lane, 14 - n_lane)
+        fn = _vmap_over_lead(fn, W.dim() - 2, n_lane, 16 - n_lane)
         return fn(
             W, W_prev, W_next, mask[..., kl], mask[..., kr], left, right, is_term,
             xref[kl], xref[kl + 1], uref[kl], xref[kr], xref[kr + 1], uref[kr],
+            tie[kl], tie[kr],
         )
 
     # ---------------- general rows ----------------
@@ -434,8 +546,14 @@ class TranscribedOCP:
     def w_bounds(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """Absolute box bounds lb, ub [N+1, nz] (before pinning)."""
         b = self.bounds
-        lb_row = torch.cat([b.x_lb, b.u_lb, b.dt_lb[None]])
-        ub_row = torch.cat([b.x_ub, b.u_ub, b.dt_ub[None]])
+        lb_parts = [b.x_lb, b.u_lb, b.dt_lb[None]]
+        ub_parts = [b.x_ub, b.u_ub, b.dt_ub[None]]
+        if self.n_aux:
+            # midpoint states carry the state bounds
+            lb_parts.append(b.x_lb)
+            ub_parts.append(b.x_ub)
+        lb_row = torch.cat(lb_parts)
+        ub_row = torch.cat(ub_parts)
         shape = (self.N + 1, self.nz)
         return lb_row.expand(shape), ub_row.expand(shape)
 
@@ -465,6 +583,12 @@ class TranscribedOCP:
             mask = self.bc.xf_fixed.to(X.dtype)
             X[..., -1, :] = mask * self.bc.xf + (1.0 - mask) * X[..., -1, :]
         return traj.replace(X=X)
+
+    def replace(self, **changes) -> "TranscribedOCP":
+        """Copy with ``changes``; a new grid gets its own ``u_tie_mask``."""
+        if changes.get("grid", self.grid) is not self.grid:
+            changes.setdefault("u_tie_mask", None)
+        return dataclasses.replace(self, **changes)
 
     def to(self, device=None, dtype=None) -> "TranscribedOCP":
         """Copy with every tensor on ``device`` (floating ones as ``dtype``)."""

@@ -54,6 +54,7 @@ from control_box_rst_tpu_torch.ops.btridiag import (
     btridiag_solve,
     interval_to_stage,
 )
+from control_box_rst_tpu_torch.ops.btridiag_cr import bcr_factor, bcr_solve
 from control_box_rst_tpu_torch.ops.cuda import build
 from control_box_rst_tpu_torch.ops.cuda.layout import (
     from_kernel_layout,
@@ -108,19 +109,39 @@ def assemble_M(Hd, J, K, sigma, rho_eq, rho_box):
     return D, rho_eq * mm_small_tn(J, K)
 
 
+LINSOLVERS = ("scan", "bcr")
+
+
+def factor_solver(D, O, linsolver: str = "scan"):
+    """Factor the block-tridiagonal M = tridiag(Oᵀ, D, O) and return its
+    solve ``rhs [..., K, nz] → x``: 'scan' the sequential block Cholesky
+    (``ops/btridiag.py``, the kernels' recurrence), 'bcr' block cyclic
+    reduction (``ops/btridiag_cr.py``)."""
+    if linsolver == "scan":
+        Ld, Lo = btridiag_cholesky(D, O)
+        return lambda rhs: btridiag_solve(Ld, Lo, rhs)
+    if linsolver == "bcr":
+        fac = bcr_factor(D, O)
+        return lambda rhs: bcr_solve(fac, rhs)
+    raise KeyError(f"unknown linsolver {linsolver!r}; have {list(LINSOLVERS)}")
+
+
 def admm_round_plain(
     Hd, J, K, g, c, dlb, dub, rho, x, z_b, y_d, y_b,
     iters: int, sigma: float, alpha: float, rho_eq_scale: float,
+    linsolver: str = "scan",
 ):
     """One ρ-round at fixed per-lane ρ: assemble M, factor, ``iters`` OSQP
     iterations with the dynamics z eliminated (z_d ≡ −c), pr/dr once on the
     final iterate (dr is the one-step-lookahead box step). The plain version
-    of ``admm_round``. Returns (x, z_b, y_d, y_b, pr [...], dr [...])."""
+    of ``admm_round`` (``linsolver`` 'scan', the kernel's; 'bcr' is the
+    reference's other linear solver, which no kernel runs). Returns (x, z_b,
+    y_d, y_b, pr [...], dr [...])."""
     # per-row ρ: equality-like box rows (pins: dlb == dub) get ρ_eq
     rho_eq = (rho * rho_eq_scale)[..., None, None]  # broadcasts over [K, n]
     rho_box = torch.where(dlb == dub, rho_eq, rho[..., None, None]).to(Hd.dtype)
     D, O = assemble_M(Hd, J, K, sigma, rho_eq[..., None], rho_box)
-    Ld, Lo = btridiag_cholesky(D, O)
+    solve_M = factor_solver(D, O, linsolver)
     x_t = torch.zeros_like(x)
     for _ in range(iters):
         vd = -rho_eq * c - y_d
@@ -129,7 +150,7 @@ def admm_round_plain(
             + interval_to_stage(mv_small_t(J, vd), mv_small_t(K, vd))
             + (rho_box * z_b - y_b)
         )
-        x_t = btridiag_solve(Ld, Lo, rhs)
+        x_t = solve_M(rhs)
         x = alpha * x_t + (1.0 - alpha) * x
         ax = mv_small(J, x_t[..., :-1, :]) + mv_small(K, x_t[..., 1:, :])
         v_d = alpha * ax + (1.0 - alpha) * (-c)

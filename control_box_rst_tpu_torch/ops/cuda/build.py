@@ -34,6 +34,9 @@ Spec = Tuple[pathlib.Path, Mapping[str, int]]  # (source, defines)
 
 _libs: Dict[Tuple[str, Tuple[Tuple[str, int], ...]], ctypes.CDLL] = {}
 _lock = threading.Lock()
+# what nvcc printed for each library built with ``verbose`` (file name ->
+# stdout + stderr: ptxas's registers and spills per kernel)
+BUILD_OUTPUT: Dict[str, str] = {}
 
 
 def find_nvcc() -> str:
@@ -104,10 +107,33 @@ def build_all(specs: Sequence[Spec], verbose: bool = False) -> Tuple[pathlib.Pat
             continue
         if verbose:
             print(stdout + stderr, flush=True)
+            BUILD_OUTPUT[out.name] = stdout + stderr
         os.replace(tmp, out)
     if failures:
         raise RuntimeError("\n".join(failures))
     return tuple(outs)
+
+
+def ptxas_report(text: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel of one ``-Xptxas -v`` output: registers, spill stores and
+    loads (bytes), stack frame (bytes), keyed by the kernel's mangled name."""
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[name].update(stack_bytes=int(m.group(1)), spill_store_bytes=int(m.group(2)),
+                             spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 def build(source: pathlib.Path, defines: Mapping[str, int],

@@ -11,7 +11,6 @@ from typing import Optional
 
 import torch
 
-from control_box_rst_tpu_torch.control.predictive import PredictiveController
 from control_box_rst_tpu_torch.ocp.problem import Trajectory
 from control_box_rst_tpu_torch.ocp.transcribe import TranscribedOCP
 from control_box_rst_tpu_torch.sim.closed_loop import ClosedLoopResult, run_closed_loop
@@ -144,30 +143,37 @@ def make_batched_ip_solver(
 
 
 def make_batched_closed_loop(
-    controller: PredictiveController,
+    controller,
     plant: SimulatedPlant,
     T_steps: int,
     dt: float,
     mesh=None,
     device=None,
     dtype=None,
+    observer=None,
 ):
     """Returns fn(x0s [B, nx], generator=None) → ``ClosedLoopResult`` of B
     closed-loop rollouts of T_steps each (results [B, T(+1), …]).
 
-    The controller is rebuilt for ``device`` / ``dtype`` (``None``: the card,
-    raising when there is none; float32): its OCP is moved there and its
-    constant structure hoisted once, and ``cfg.qp.backend=None`` resolves to
-    the fused box-QP kernel for a float32 solve on the card. x0s may be a
-    tensor or a numpy array; ``generator`` is what noisy plants draw from."""
+    ``controller``: a ``PredictiveController``, a ``DualModeController``
+    over one, or any controller with a ``to``. It is rebuilt for ``device``
+    / ``dtype`` (``None``: the card, raising when there is none; float32)
+    once, here: a predictive controller's OCP is moved there and its
+    constant structure hoisted, and ``cfg.qp.backend=None`` resolves to the
+    fused box-QP kernel for a float32 solve on the card. ``observer``
+    (``None``: the state is measured) is moved there too. x0s may be a
+    tensor or a numpy array; ``generator`` is what noisy plants draw from
+    (on ``device``; ``None`` means one seeded with 0)."""
     _refuse_mesh(mesh)
     device = resolve_device(device)
     dtype = resolve_dtype(dtype)
-    controller = controller.replace(device=device, dtype=dtype)
+    controller = controller.to(device, dtype)
     plant = tree_to(plant, device, dtype)
+    observer = None if observer is None else tree_to(observer, device, dtype)
 
     def rollout(x0s, generator=None) -> ClosedLoopResult:
         x0s = torch.as_tensor(x0s).to(device=device, dtype=dtype)
-        return run_closed_loop(plant, controller, x0s, T_steps, dt, generator=generator)
+        return run_closed_loop(plant, controller, x0s, T_steps, dt, observer=observer,
+                               generator=generator)
 
     return rollout

@@ -140,7 +140,7 @@ class LMProblem:
         return _hinge(v - self.ru[k]) + _hinge(self.rl[k] - v)
 
     # ---------------- residuals ----------------
-    def interval_res(self, w, w1, xref, uref, m, tie, lb, ub, free, w_eq, w_b, w_ineq):
+    def interval_res(self, w, w1, xref, uref, m, tie, utie, lb, ub, free, w_eq, w_b, w_ineq):
         """Stage-blocked residual r_k(w_k, w_{k+1}) ∈ R^nr. ``w``, ``w1``
         [..., nz]; the stage data (``xref`` … ``free``) and the penalty
         weights [...] broadcast over leading dims."""
@@ -152,7 +152,7 @@ class LMProblem:
         if ocp.cost.integral:
             scale = m * torch.sqrt(torch.clamp(dt, min=1e-12))
         # equality: interval rows (defect + ties)
-        c = ocp.interval_residual(w, w1, m, tie)
+        c = ocp.interval_residual(w, w1, m, tie, utie)
         parts = [scale[..., None] * r_lsq, torch.sqrt(w_eq)[..., None] * c]
         # general rows at stage k (the two-sided hinge covers eq and ineq rows)
         if self.ng:
@@ -181,7 +181,7 @@ class LMProblem:
     def _stage_data(self):
         refs = self.ocp.refs
         return (refs.xref[:-1], refs.uref, self.ocp.stage_mask, self.ocp.tie_mask,
-                self.lb[:-1], self.ub[:-1], self.free[:-1])
+                self.ocp.u_tie_mask, self.lb[:-1], self.ub[:-1], self.free[:-1])
 
     def all_residuals(self, W, w_eq, w_b, w_ineq):
         """r_int [B, N, nr], r_term [B, nr] for W [B, N+1, nz], weights [B]."""
@@ -200,11 +200,11 @@ class LMProblem:
         Jᵀr (g [B, N+1, nz]), with χ² = rᵀr [B] of the same residuals."""
         free, N = self.free, self.ocp.N
         jac = torch.func.jacfwd(_with_value(self.interval_res), argnums=(0, 1), has_aux=True)
-        over_stages = torch.func.vmap(jac, in_dims=(0,) * 9 + (None,) * 3)
+        over_stages = torch.func.vmap(jac, in_dims=(0,) * 10 + (None,) * 3)
         # the stage data is shared by the lanes, but for a per-lane mask
         mask_dim = 0 if self.ocp.per_lane_mask else None
         over_lanes = torch.func.vmap(
-            over_stages, in_dims=(0, 0, None, None, mask_dim) + (None,) * 4 + (0, 0, 0))
+            over_stages, in_dims=(0, 0, None, None, mask_dim) + (None,) * 5 + (0, 0, 0))
         (J, K), r_int = over_lanes(
             W[:, :-1], W[:, 1:], *self._stage_data(), w_eq, w_b, w_ineq)
         J = J * free[:-1, None, :]

@@ -16,13 +16,18 @@ termination; finished lanes are frozen by a mask.
 
 Backends (``QPConfig.backend``):
   'plain' — the non-fused ADMM: Python loops over torch ops, any float dtype,
-            any device, general rows included. The oracle path.
+            any device, general rows included. The oracle path. Its linear
+            solver is ``QPConfig.linsolver``: 'scan' (sequential block
+            Cholesky) or 'bcr' (block cyclic reduction, log₂ depth).
   'fused' — the whole solve in one call of ``ops.cuda.admm_kernel.boxqp_solve``
             (float32, ng = 0): the hand-written CUDA kernel for tensors on the
-            card, its plain version for tensors on the CPU. Explicit dispatch
-            on the batch takes the place of the reference's ``custom_vmap``.
-            Another dtype, or general rows, raise: 'fused' never means the
-            non-fused ADMM (where the reference quietly runs it for ng > 0).
+            card, its plain version for tensors on the CPU, at every batch
+            size (the reference detours batches under 64 lanes through its
+            plain version, which honours ``linsolver``; that detour is tile
+            padding, which the port leaves out). ``linsolver`` does not
+            apply. Another dtype, or general rows, raise: 'fused' never means
+            the non-fused ADMM (where the reference quietly runs it for
+            ng > 0).
   None    — 'plain' here; ``make_batched_solver`` picks 'fused' for a float32
             solve without general rows on the card.
 """
@@ -33,11 +38,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from control_box_rst_tpu_torch.ops.btridiag import (
-    btridiag_cholesky,
-    btridiag_solve,
-    interval_to_stage,
-)
+from control_box_rst_tpu_torch.ops.btridiag import interval_to_stage
 from control_box_rst_tpu_torch.ops.cuda import admm_kernel
 from control_box_rst_tpu_torch.ops.smallmat import mm_small_tn, mv_small, mv_small_t
 from control_box_rst_tpu_torch.utils.precision import resolve_device, resolve_dtype
@@ -78,7 +79,8 @@ class QPConfig:
     rho_min: float = 1e-4
     rho_max: float = 1e4
     # block-tridiagonal linear solver of the 'plain' backend: 'scan' (Thomas-
-    # ordering block Cholesky, ops/btridiag.py); 'bcr' is not ported yet
+    # ordering block Cholesky, ops/btridiag.py) or 'bcr' (block cyclic
+    # reduction, ops/btridiag_cr.py); the fused solve ignores it
     linsolver: str = "scan"
     # round execution backend: 'plain' | 'fused' | None (see module docstring)
     backend: Optional[str] = None
@@ -127,13 +129,6 @@ def _no_general_rows(qp: StageQP) -> None:
         )
 
 
-def _require_scan(cfg: "QPConfig") -> None:
-    if cfg.linsolver != "scan":
-        raise NotImplementedError(
-            f"linsolver {cfg.linsolver!r} is not ported yet (other-solvers slice)"
-        )
-
-
 def _assemble_M(qp: StageQP, cfg: QPConfig, rho_eq, rho_gen, rho_box):
     """Block-tridiagonal normal matrix M = Hd + σI + Aᵀdiag(ρ)A.
     rho_eq broadcasts against [..., N, nz, nz]; rho_gen is [..., N+1, ng]
@@ -147,13 +142,13 @@ def _assemble_M(qp: StageQP, cfg: QPConfig, rho_eq, rho_gen, rho_box):
 def _round_reference_fn(cfg: QPConfig, iters: int):
     """Single-ρ-round implementation matching the kernel exactly (z_d ≡ -c
     eliminated; pr/dr computed once on the final iterate). Batch-first: the
-    returned function takes [..., …] operands and per-lane ρ [...]."""
-    _require_scan(cfg)
+    returned function takes [..., …] operands and per-lane ρ [...]; it
+    factors with ``cfg.linsolver``."""
 
     def _reference(Hd, J, K, g, c, dlb, dub, rho, x, z_b, y_d, y_b):
         return admm_kernel.admm_round_plain(
             Hd, J, K, g, c, dlb, dub, rho, x, z_b, y_d, y_b,
-            iters, cfg.sigma, cfg.alpha, cfg.rho_eq_scale,
+            iters, cfg.sigma, cfg.alpha, cfg.rho_eq_scale, linsolver=cfg.linsolver,
         )
 
     return _reference
@@ -165,8 +160,9 @@ def _make_fused_solve(cfg: QPConfig, max_iter: int, tol: float):
     per-lane ρ rescale, early exit. Returns (fused_solve, reference):
     ``fused_solve`` takes [B, …] operands and dispatches on their device (the
     CUDA kernel on the card, the plain version on the CPU); ``reference`` is
-    the plain version for any leading dims — the kernel's oracle."""
-    _require_scan(cfg)
+    the plain version for any leading dims — the kernel's oracle. The fused
+    solve has one linear solver, the kernel's: ``cfg.linsolver`` does not
+    apply."""
     iters = cfg.iters_per_round
     kkt = cfg.kkt_tols
     kw = dict(
@@ -217,7 +213,8 @@ def solve_stage_qp(
     )
     if cfg.backend not in (None, "plain", "fused"):
         raise KeyError(f"unknown backend {cfg.backend!r}; have ['plain', 'fused']")
-    _require_scan(cfg)
+    if cfg.linsolver not in admm_kernel.LINSOLVERS:
+        raise KeyError(f"unknown linsolver {cfg.linsolver!r}; have {list(admm_kernel.LINSOLVERS)}")
 
     def A_mul(x):
         Ax_g = mv_small(qp.G, x) if ng else None
@@ -299,14 +296,14 @@ def solve_stage_qp(
         rho_box = torch.where(box_is_eq, rho_eq3, rho3).to(dtype)
         rho_gen = torch.where(gen_is_eq, rho_eq3, rho3).to(dtype) if ng else None
         D, O = _assemble_M(qp, cfg, rho_eq3[..., None], rho_gen, rho_box)
-        Ld, Lo = btridiag_cholesky(D, O)
+        solve_M = admm_kernel.factor_solver(D, O, cfg.linsolver)
         xn, zdn, zgn, zbn, ydn, ygn, ybn = x, z_d, z_g, z_b, y_d, y_g, y_b
         for _ in range(cfg.iters_per_round):
             rhs = cfg.sigma * xn - qp.g + At_mul(
                 rho_eq3 * zdn - ydn, rho_gen * zgn - ygn if ng else None,
                 rho_box * zbn - ybn,
             )
-            x_t = btridiag_solve(Ld, Lo, rhs)
+            x_t = solve_M(rhs)
             Ax_d, Ax_g, Ax_b = A_mul(x_t)
             xn = a * x_t + (1 - a) * xn
             zd2, ydn = family(Ax_d, zdn, ydn, rho_eq3, l_dyn, u_dyn)

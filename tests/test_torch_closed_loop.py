@@ -427,8 +427,9 @@ def test_noise_mean_and_std_in_distribution():
 
 
 def test_what_is_not_ported_raises_by_name():
-    """Observer and mesh still raise by name; ``solver='ip'`` is ported
-    (the constrained slice) and builds its default settings."""
+    """The mesh still raises by name; ``solver='ip'`` (the constrained
+    slice) and the Kalman observer (the LQR family) are ported: the one
+    builds its default settings, the other its gain."""
     from control_box_rst_tpu_torch.solvers import IPConfig
 
     ocp, cfg = entry.flagship(N=4, device="cpu")
@@ -436,10 +437,10 @@ def test_what_is_not_ported_raises_by_name():
     assert isinstance(PredictiveController(solver="ip", **kw).ip_cfg, IPConfig)
     with pytest.raises(KeyError):
         PredictiveController(solver="newton", **kw)
-    with pytest.raises(NotImplementedError, match="slice F"):
-        SteadyStateKalmanObserver()
-    with pytest.raises(NotImplementedError, match="slice F"):
-        SteadyStateKalmanObserver.from_linear(None, None, None)
+    obs = SteadyStateKalmanObserver.from_linear(
+        torch.eye(2, dtype=torch.float64), torch.zeros((2, 1), dtype=torch.float64),
+        torch.eye(2, dtype=torch.float64))
+    assert obs.L.shape == (2, 2)
     ctrl = PredictiveController(**kw)
     plant = SimulatedPlant(system=DoubleIntegratorContinuous())
     with pytest.raises(NotImplementedError, match="slice G"):

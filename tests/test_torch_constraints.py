@@ -18,7 +18,8 @@ Same numpy inputs from a seed through both, float64:
   - ``solve_nlp`` on the problems of tests/test_simple_nlp.py against the
     JAX solve (1e-8) and the analytic optimum (the reference test's
     tolerances);
-  - ``riccati_terminal_cost`` still raises by name.
+  - ``riccati_terminal_cost`` (ported with the LQR family) gives the
+    double integrator's CARE solution.
 The JAX side runs under ``jax.jit``.
 """
 import jax
@@ -194,8 +195,18 @@ def test_terminal_constraints_rebuild_from_numpy_specs(name):
 
 
 def test_riccati_terminal_cost_still_raises_by_name():
-    with pytest.raises(NotImplementedError, match="matrix_eq"):
-        tc.riccati_terminal_cost(None, None, None, None, None)
+    """Ported with ``ops/matrix_eq.py`` (the LQR family): the double
+    integrator's Qf is the CARE's solution (held to the JAX one in
+    tests/test_torch_matrix_eq.py)."""
+    from control_box_rst_tpu_torch.models import DoubleIntegratorContinuous
+
+    z = torch.zeros(2, dtype=torch.float64)
+    cost = tc.riccati_terminal_cost(DoubleIntegratorContinuous(), z, z[:1],
+                                    torch.eye(2, dtype=torch.float64),
+                                    torch.eye(1, dtype=torch.float64))
+    # A = [[0, 1], [0, 0]], B = e2, Q = I, R = 1: X = [[√3, 1], [1, √3]]
+    s3 = np.sqrt(3.0)
+    np.testing.assert_allclose(cost.Qf.numpy(), [[s3, 1.0], [1.0, s3]], rtol=0, atol=1e-10)
 
 
 # --------------------------------------------------------------------------

@@ -279,20 +279,29 @@ def test_psd_clamp_on_the_hoisted_path_of_config_1():
 @pytest.mark.parametrize("case", ["bcr", "move_blocking", "hermite_simpson", "backward",
                                   "cost_integration"])
 def test_other_grid_slice_refusals_still_raise_by_name(case):
+    """What the other-grids slice brought no longer raises: 'bcr' solves the
+    general-row QP as 'scan' does (1e-10), the move-blocking, Hermite-Simpson
+    and backward grids transcribe; an unknown cost integration still raises
+    by name."""
     from control_box_rst_tpu_torch.models import DoubleIntegratorContinuous
     from control_box_rst_tpu_torch.ocp import Grid, QuadraticFormCost as TQF, transcribe as ttr
 
     cost = TQF(Q=torch.eye(2, dtype=F64), R=torch.eye(1, dtype=F64))
     if case == "bcr":
         qp = convert.stage_qp_from_numpy(_qp_with_general_rows(41), dtype=F64, device="cpu")
-        with pytest.raises(NotImplementedError, match="bcr"):
-            solve_stage_qp(qp, QPConfig(linsolver="bcr", backend="plain"))
+        sols = [solve_stage_qp(qp, QPConfig(linsolver=ls, backend="plain"))
+                for ls in ("bcr", "scan")]
+        np.testing.assert_allclose(to_np(sols[0].delta), to_np(sols[1].delta), rtol=0, atol=1e-10)
+        assert torch.equal(sols[0].iters, sols[1].iters)
         return
-    grid = {"move_blocking": Grid(N=4, u_blocks=(2, 2)),
+    grid = {"move_blocking": Grid(N=4, u_blocks=(2, 2, 2, 2)),
             "hermite_simpson": Grid(N=4, fd_scheme="hermite_simpson"),
             "backward": Grid(N=4, fd_scheme="backward"),
             "cost_integration": Grid(N=4, cost_integration="simpson")}[case]
     if case == "cost_integration":
-        cost = cost.replace(integral=True)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ttr(DoubleIntegratorContinuous(), grid, cost, dtype=F64, device="cpu")
+        with pytest.raises(KeyError, match="cost integration"):
+            ttr(DoubleIntegratorContinuous(), grid, cost.replace(integral=True),
+                dtype=F64, device="cpu")
+        return
+    ocp = ttr(DoubleIntegratorContinuous(), grid, cost, dtype=F64, device="cpu")
+    assert (ocp.nz, ocp.nc) == (4, 3 if case == "move_blocking" else 2)

@@ -72,6 +72,8 @@ def test_every_listed_module_exists():
         "ocp/constraints.py", "ocp/preprocessor.py",
         "solvers/stage_qp.py", "solvers/sqp.py", "solvers/lm.py", "solvers/ip.py",
         "solvers/simple_nlp.py",
+        "ops/btridiag_cr.py", "ops/matrix_eq.py", "control/classic.py",
+        "control/dual_mode.py", "sim/observer.py",
         "parallel/sharded_solve.py", "entry.py", "convert.py",
     ):
         assert (PKG / rel).is_file(), rel

@@ -72,7 +72,7 @@ def _btridiag_bytes_from_source(K, nz):
 
 
 @pytest.mark.parametrize("shared_hjk", [True, False], ids=["shared-HJK", "per-lane-HJK"])
-@pytest.mark.parametrize("shape", [(51, 4, 2), (9, 4, 2), (21, 3, 1), (1001, 4, 2), (33, 6, 3)],
+@pytest.mark.parametrize("shape", [(51, 4, 2), (9, 4, 2), (21, 3, 1), (1001, 4, 2), (33, 6, 3), (21, 6, 4)],
                          ids=lambda s: "Kst{}_nz{}_nc{}".format(*s))
 def test_state_bytes_per_lane_equals_the_cuda_carve_up(shape, shared_hjk):
     Kst, nz, nc = shape

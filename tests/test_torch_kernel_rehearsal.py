@@ -17,10 +17,16 @@ the same numpy inputs from a seed, float32:
     rounds, the per-lane ``it`` equal; 5e-6 for the block-tridiagonal solve,
     the bound of tests/test_torch_btridiag_kernel.py).
 
-The box-QP kernels are built for both (nz, nc) specialisations that the
-ported configurations launch: (4, 2) (configs 1 and 2) and (4, 3) (config 3,
-whose dt tie adds an interval row), the latter also at config 3's horizon
-(Kst = 21) with Hd, J, K per lane as its SQP iterations hand them over.
+The box-QP kernels are built for the three (nz, nc) specialisations that the
+ported configurations launch: (4, 2) (configs 1, 2, 5 and 6), (4, 3)
+(config 3, whose dt tie adds an interval row, and move blocking, whose u
+tie does), the latter also at config 3's horizon (Kst = 21) with Hd, J, K
+per lane as its SQP iterations hand them over, and (6, 4) (config 6 on the
+uncompressed Hermite-Simpson grid: the midpoint states in the stage vector,
+their interpolation rows among the interval rows). The (6, 4) build runs
+config 6's uncompressed first-iteration QPs (Kst = 21, Hd/J/K per lane)
+against the plain version, and move blocking's one-shot runs through the
+(4, 3) build on one shared copy of Hd/J/K.
 
 The block-tridiagonal source is built for nz = 4 (LM's Gauss-Newton
 systems), 3 and 2 (the interior-point solver's Schur systems, nc × nc blocks
@@ -45,7 +51,7 @@ from torch_kernel_util import misaligned
 
 torch.set_num_threads(1)
 NZ, NC = 4, 2
-SHAPES = ((4, 2), (4, 3))  # (nz, nc) of the box-QP library builds
+SHAPES = ((4, 2), (4, 3), (6, 4))  # (nz, nc) of the box-QP library builds
 BASE = (1e-6, 1.6, 1e3)  # sigma, alpha, rho_eq_scale
 
 
@@ -78,7 +84,7 @@ def libs(tmp_path_factory):
     return admm, bts
 
 
-def _qps(B, Kst, shared, seed=0, NC=NC):
+def _qps(B, Kst, shared, seed=0, NC=NC, NZ=NZ):
     rng = np.random.default_rng(seed)
     N = Kst - 1
     A = rng.standard_normal((B, Kst, NZ, NZ)) * 0.3
@@ -157,6 +163,9 @@ def _first_sqp_iteration_qps(config, B):
     if config == "vdp_ms":
         ocp, cfg = entry.vdp_ms(device="cpu")
         x0s = np.random.default_rng(1).uniform(-1.5, 1.5, (4096, 2))[:B]
+    elif config.startswith("hermite_simpson"):
+        ocp, cfg = getattr(entry, config)(device="cpu")
+        x0s = np.random.default_rng(60).uniform(-1.5, 1.5, (4096, 2))[:B]
     else:
         seed = 2 if config == "time_optimal" else 4
         d = np.random.default_rng(seed).uniform(0.5, 2.0, (4096,))[:B]
@@ -214,6 +223,99 @@ def test_boxqp_solve_kernel_on_nonlinear_qps_is_as_close_as_plain(libs, config):
         e_k = float((kern[i].double() - f64[i]).abs().max())
         e_p = float((plain[i].double() - f64[i]).abs().max())
         assert e_k <= 2.0 * e_p + 1e-4, (i, e_k, e_p)
+
+
+@pytest.mark.parametrize("config", ["hermite_simpson", "hermite_simpson_unc"])
+def test_boxqp_solve_kernel_on_config6_qps(libs, config):
+    """Config 6's first-iteration QPs (Kst = 21, Hd/J/K per lane, 128
+    lanes; the uncompressed grid's through the (6, 4) build), as the card
+    holds them: the kernel as close to the float64 plain version as the
+    float32 plain version (x, y_d, y_b, 2x + 1e-4). These QPs are
+    ill-conditioned in float32 (any float32 solve is 4e-3 to 7e-3 from
+    float64 in x after two rounds, and which lanes are worst differs from one
+    float32 solve to the other: over 32 lanes the maxima spread 3x), and
+    their exit tests sit at the float32 noise floor: a lane's rounds are held
+    within one of the plain version's."""
+    args, scal = _first_sqp_iteration_qps(config, 128)
+    B, Kst, nz = args[0].shape[:3]
+    nc = args[1].shape[2]
+    assert (Kst, nz, nc) == ((21, 6, 4) if config.endswith("unc") else (21, 4, 2))
+    kern = ak._launch_smem(libs[0][nz, nc], "boxqp_solve", args, (B, Kst, nz, nc), scal, 0)
+    plain = ak.boxqp_solve_plain(*args, *scal)
+    f64 = ak.boxqp_solve_plain(*[a.double() for a in args], *scal)
+    assert float((kern[6] - plain[6]).abs().max()) <= scal[1]
+    for i in (0, 2, 3):
+        e_k = float((kern[i].double() - f64[i]).abs().max())
+        e_p = float((plain[i].double() - f64[i]).abs().max())
+        assert e_k <= 2.0 * e_p + 1e-4, (i, e_k, e_p)
+
+
+def test_boxqp_solve_nz6_build_on_the_host(libs):
+    """The (6, 4) build on random QPs (Kst = 21, per-lane Hd/J/K, 9 lanes
+    outnumbering the teams) and on config 6's uncompressed first-iteration
+    QPs (13 lanes): the shared-memory kernel and the one-thread-per-lane
+    kernel give the same bits; on the random QPs both take the plain
+    version's rounds with x within 1e-4 of it (config 6's are held to the
+    float64 plain version in ``test_boxqp_solve_kernel_on_config6_qps``)."""
+    admm = libs[0][6, 4]
+    for qps in ("random", "hermite_simpson_unc"):
+        if qps == "random":
+            B, Kst = 9, 21
+            args = _qps(B, Kst, shared=False, seed=6, NC=4, NZ=6)
+            scal = (6, 4, 2e-4, *BASE, 1e-4, 1e4, 0.0, 0.0)
+        else:
+            args, scal = _first_sqp_iteration_qps(qps, 13)
+            B, Kst = args[0].shape[:2]
+        dims = (B, Kst, 6, 4)
+        assert ak.solve_route(Kst, 6, 4, False) == "smem"
+        max_smem = ctypes.c_int.in_dll(admm, "shim_max_smem")
+        max_smem.value = 2 * ak.LANES_PER_WARP * ak.state_bytes_per_lane(Kst, 6, 4, False)
+        try:
+            smem = ak._launch_smem(admm, "boxqp_solve", args, dims, scal, 0)
+            info = dict(ak.LAUNCH_INFO["boxqp_solve"])
+        finally:
+            max_smem.value = ak.MAX_DYNAMIC_SMEM_BYTES
+        thread = ak._launch_thread(admm, "boxqp_solve", args, dims, scal, 0)
+        assert info["route"] == "smem" and not info["shared_hjk"]
+        assert info["smem_bytes_per_lane"] == ak.state_bytes_per_lane(Kst, 6, 4, False)
+        assert info["blocks"] * info["warps_per_block"] * ak.LANES_PER_WARP < B
+        for a, b in zip(smem, thread):
+            assert torch.equal(a, b)
+        if qps == "random":
+            plain = ak.boxqp_solve_plain(*args, *scal)
+            assert torch.equal(smem[6], plain[6]) and len(set(smem[6].tolist())) > 1
+            np.testing.assert_allclose(smem[0].numpy(), plain[0].numpy(), rtol=0, atol=1e-4)
+
+
+def test_move_blocking_one_shot_through_the_nc3_build(libs, monkeypatch):
+    """Move blocking on config 1 (N = 20, ten blocks of 2): the one-shot
+    launches the (4, 3) build once on one shared copy of Hd/J/K (the tie
+    rows among the hoisted J/K), and the blocked controls come out as the
+    plain version's (1e-4) and equal inside every block (1e-6)."""
+    from control_box_rst_tpu_torch import entry
+    from control_box_rst_tpu_torch.parallel import make_batched_solver
+
+    ocp, cfg = entry.move_blocking(N=20, device="cpu")
+    cfg = cfg.replace(qp=cfg.qp.replace(backend="fused"))
+    x0s = np.random.default_rng(0).uniform(-1.0, 1.0, (24, 2)).astype(np.float32)
+    U_plain = make_batched_solver(ocp, cfg, device="cpu")(x0s)[0]
+    admm = libs[0][4, 3]
+    calls = []
+
+    def launch(*args, **kw):
+        dims = ak._check_args(args)
+        calls.append((dims, ak._lane_invariant(*args[:3])))
+        keys = ("n_rounds", "iters", "tol", "sigma", "alpha", "rho_eq_scale", "rho_min",
+                "rho_max", "tol_stat", "tol_feas")
+        return ak._launch_smem(admm, "boxqp_solve", args, dims, tuple(kw[k] for k in keys), 0)
+
+    monkeypatch.setattr(ak, "boxqp_solve", launch)
+    U, _, status, iters = make_batched_solver(ocp, cfg, device="cpu")(x0s)
+    assert calls[0] == ((24, 21, 4, 3), True)  # the one-shot, Hd/J/K shared
+    assert len(calls) == int(iters.max()) and bool((status == 1).all())
+    np.testing.assert_allclose(U.numpy(), U_plain.numpy(), rtol=0, atol=1e-4)
+    Ub = U[..., 0].reshape(24, 10, 2)
+    assert float((Ub - Ub[..., :1]).abs().max()) <= 1e-6
 
 
 @pytest.mark.parametrize("case", [(1, 5), (3, 6), (40, 4), (9, 9)],

@@ -112,8 +112,9 @@ def test_dense_oracle_matches_jax_and_admm():
 def test_unported_options_are_refused():
     d = random_qp_np(1)
     qp_t = convert.stage_qp_from_numpy(d, torch.float64, "cpu")
-    with pytest.raises(NotImplementedError):
-        tqp.solve_stage_qp(qp_t, tqp.QPConfig(linsolver="bcr"))
+    # 'bcr' is ported (the other-grids slice); an unknown name raises
+    with pytest.raises(KeyError):
+        tqp.solve_stage_qp(qp_t, tqp.QPConfig(linsolver="cyclic"))
     with pytest.raises(KeyError):
         tqp.solve_stage_qp(qp_t, tqp.QPConfig(backend="xla"))
     with_rows = qp_t.replace(

@@ -236,13 +236,14 @@ def test_unported_structure_is_refused():
     from control_box_rst_tpu_torch.ops.collocation import get_fd_collocation
 
     _, ocp_t = _ocps("config1")
-    for grid in (
-        Grid(N=N, kind="ms", integrator="adaptive_step"),
-        Grid(N=N, fd_scheme="backward"),
-        Grid(N=N, u_blocks=tuple(range(N))),
-    ):
-        with pytest.raises(NotImplementedError):
-            ocp_t.replace(grid=grid)
+    # the adaptive integrators are not ported (slice F)
+    with pytest.raises(NotImplementedError):
+        ocp_t.replace(grid=Grid(N=N, kind="ms", integrator="adaptive_step"))
+    # the other grids are (a move-blocking sequence must name every interval)
+    for grid in (Grid(N=N, fd_scheme="backward"), Grid(N=N, u_blocks=tuple(range(N)))):
+        assert ocp_t.replace(grid=grid).nc == 2 + (1 if grid.has_u_tie else 0)
+    with pytest.raises(ValueError):
+        ocp_t.replace(grid=Grid(N=N, u_blocks=(0, 0)))
     with pytest.raises(KeyError):
         get_fd_collocation("no_such_scheme")
     with pytest.raises(ValueError):
