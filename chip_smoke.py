@@ -19,8 +19,10 @@ every lane its own active horizon), and the interior-point paths (config 1 by
 IP, SQP and LM at B=4096, config 5 under the IP controller), config 6
 (Van der Pol, Hermite-Simpson, open loop on the compressed and on the
 uncompressed grid, and under MPC), move blocking on config 1, the Kalman /
-dual-mode closed loop of ``examples/config5_kalman_dual_mode.yaml`` and
-block cyclic reduction in the plain ADMM — after building
+dual-mode closed loop of ``examples/config5_kalman_dual_mode.yaml``,
+block cyclic reduction in the plain ADMM, and the port's config loader and
+master CLI on the six example YAMLs, a batched config 1, the loader's IP and
+LM solvers and the twelve systems of the model zoo — after building
 every CUDA kernel of those paths from the sources in this
 checkout and holding each kernel against its plain PyTorch version on the same
 inputs. There is no CPU path: without a CUDA device the script exits non-zero
@@ -29,7 +31,8 @@ and prints no result. Any phase that fails raises, and the run fails with it.
 Phases
   1 device   require CUDA; card name and power limit (nvidia-smi)
   2 build    compile csrc/*.cu with nvcc, one process per library (the
-             box-QP source for (nz, nc) = (4, 2), (4, 3) and (6, 4), the
+             box-QP source for (nz, nc) = (4, 2), (4, 3), (6, 4), (5, 2)
+             and (5, 3), the
              block-tridiagonal source for nz = 4 and for nz = 2), started
              together (seconds); -Xptxas -v reports registers and spills
   3 kernels  box-QP ADMM kernels vs plain version at flagship shapes (Kst=51,
@@ -78,7 +81,15 @@ Phases
              both routes; the uncompressed first-iteration QPs of the
              config-6 batch (B=4096) held as configs 2 and 3's are, B=1000
              the first lanes' bits; route, shared memory, registers and
-             spills, times, bound; its own entry in the kernels line
+             spills, times, bound; its own entry in the kernels line.
+             The same for the (5, 2) and (5, 3) builds (phase kernels_nz5:
+             the master zoo's parallel integrators and free-space rocket):
+             the quotient; random QPs at Kst=21 as for (6, 4), both routes
+             against the float32 plain version; the zoo system's own
+             first-iteration QPs at B=4096 around its x0 against the float64
+             plain version (as close as the float32 plain version), rounds
+             within one, B=1 and 8 the first lanes' bits; registers, spills,
+             times, bound; an entry each in the kernels line
   4 main     the batched SQP solve; gates: converged fraction >= 0.99, max
              |U - U_oracle| <= 1e-3 on the first 64 lanes (f64 oracle golden
              file), kernel launch counter > 0; solves/s, mean SQP iterations,
@@ -127,7 +138,7 @@ Phases
              fraction of the first 64 rollouts no lower than the JAX
              package's own float32 run of them; rollouts/s, an n_active
              histogram by step, B=1 step p50 / p99; the same batch by
-             ``backend='plain'`` over the first 10 steps (equal n_active
+             ``backend='plain'`` over the first 2 steps (equal n_active
              share and max |u_fused - u_plain| there, reported). K1 against its plain version on
              config 4's first-iteration QPs (Kst=11) and on the QPs of
              adaptive step 8 (Kst=16, lanes of mixed horizons, identity-chain
@@ -193,7 +204,31 @@ Phases
              ADMM with linsolver='bcr' against 'scan' at B=4096 (scan's run
              is the ip phase's) and B=1: max |U_bcr - U_scan| <= 1e-4,
              converged >= 0.99, no kernel launched; times
- 14 result   one JSON line with every kernel's record, then the contract line
+ 14 master   the config loader and the master CLI (``core/config.py``,
+             ``master.py``): the six example YAMLs at their own settings
+             through ``master.main`` in this process (config 5 twice: with
+             its output noise, held to the switch contract and the box gate;
+             with noise 0), each with K1 launches == the lock-step SQP
+             iterations > 0, the exported controls == the run's, the
+             usable-step fraction >= the JAX package's own float32 run's,
+             and the controls and states within max(2 x the reference's own
+             float32 distance, 1e-3) of the float64 golden
+             (tests/golden/torch_master_examples.npz, tools/master_golden.py)
+             on the steps before the reference's float32 run parts from it
+             (config 4: step 2; where the port's parts is reported); config
+             1 as ``benchmark_varying_x0`` over a 64 x 64 grid (4096
+             rollouts of 70 steps; usable >= 0.99, K1 == lock-step, max
+             |u_fused - u_plain| <= 1e-3 over the first 10 steps, plain =
+             backend 'plain' with linsolver 'bcr'; rollouts/s, MPC steps/s,
+             best of 3); config 1 by IP and by LM (10 steps, K4 ==
+             lock-step, u finite, IP's |u| <= 1 + 1e-6) and an increasing-N
+             sweep; one open loop of each of the twelve registered systems
+             (tests/golden/torch_master_zoo.npz: U within max(2 x the
+             reference's own float32 distance, 1e-3) of the converged float64
+             golden; K1 through its (4, 2), (5, 2), (5, 3) and (6, 4) builds);
+             every run's K1 launches by build, from the wrapper's own
+             per-build counts, summing to its total
+ 15 result   one JSON line with every kernel's record, then the contract line
 
 Output: progress lines (with ``--profile`` a ``{"profile": ...}`` line with
 the device time by kernel and the hand-written kernels launch by launch, a
@@ -209,7 +244,8 @@ a ``{"nonuniform": ...}`` line, an ``{"ip": ...}`` line (``--profile``
 adds ``profile_ip``: one traced config-1 and constrained-DI IP batch, eager
 kernels per IP iteration, and ``profile_grids``: one traced batch of each
 path of phases 10-12), ``{"grids": ...}``, ``{"hs_closed_loop": ...}``,
-``{"dual_mode": ...}`` and ``{"bcr": ...}`` lines, the nvidia-smi line, a
+``{"dual_mode": ...}``, ``{"bcr": ...}`` and ``{"master": ...}`` lines, the
+nvidia-smi line, a
 ``{"kernels": [...]}``
 line (per kernel the contract's keys and, where a kernel was redesigned,
 ``earlier_ms`` / ``vs_earlier``: the kernel it replaced on the same inputs,
@@ -217,8 +253,11 @@ and ``launch``: route, shared memory per lane, resident lanes per SM,
 registers per thread; the box-QP solve kernel adds ``launches_by_path`` and
 ``shapes``, its records at the nonlinear paths' shapes, on the closed
 loop's step-5 QPs, at config 4's two horizons and on the uncompressed
-config-6 QPs; ``boxqp_solve[nz6_nc4]`` is the (6, 4) build's own entry
-(launches: the uncompressed grid's path); the in-place block-tridiagonal kernel adds
+config-6 QPs; ``boxqp_solve[nz6_nc4]``, ``boxqp_solve[nz5_nc2]`` and
+``boxqp_solve[nz5_nc3]`` are the other builds' own entries (launches: those
+at that build, on the uncompressed grid's path and the master's zoo); the
+(4, 2) / (4, 3) entry's ``launches`` are the rest of the total,
+``launches_all_builds``); the in-place block-tridiagonal kernel adds
 ``launches_by_path``: LM on config 1, the LM closed loop, config 1 by IP, the
 constrained double integrator by IP and by LM, the IP controller; K3 its
 ``inplace=False`` LM and IP passes; both add ``nz2``, their record at the IP
@@ -230,6 +269,7 @@ line ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import pathlib
 import subprocess
@@ -265,7 +305,7 @@ NU_TRIALS = 3      # config 4 open loop: best of NU_TRIALS single batches
 NU_CL_TRIALS = 1   # config 4 closed loop: best of the counted and NU_CL_TRIALS more batches
 NU_SINGLE = 20     # single config-4 solves for the open loop's p50 / p99
 NU_CHECK_STEP = 8  # the adaptive MPC step whose QPs (mixed horizons) K1 is held to
-NU_PLAIN_STEPS = 10  # steps of config 4's rollouts also run by the plain backend
+NU_PLAIN_STEPS = 4   # steps of config 4's rollouts also run by the plain backend
 IP_TRIALS = 3      # config 1 by IP: best of IP_TRIALS single batches
 IP_SINGLE = 20     # single config-1 IP solves for its p50 / p99
 IP_LATE_ITERATION = 8  # the "late" IP iteration whose Schur systems are checked
@@ -282,7 +322,10 @@ MB_BATCH = 32768    # lanes of move blocking (config 1's main batch)
 BLOCK_TOL = 1e-6    # move blocking: controls equal inside a block
 HS_CL_BATCH = 4096  # rollouts of config 6 under MPC
 HS_CL_PLAIN_STEPS = 10  # steps of that batch also run by the plain backend
-HS_CL_PLAIN_LANES = 256  # rollouts of that batch run by the plain backend over all steps
+HS_CL_PLAIN_LANES = 256  # rollouts of that batch run by the plain backend over more steps
+# the steps of those rollouts: all 40 (the plain backend's Python loop costs
+# the same for 256 rollouts as for 4096, ~2.8 s a step on the card)
+HS_CL_PLAIN_ALL_STEPS = 40
 HS_CL_REF_LANES = 64
 # the JAX package's own float32 run of config 6's first 64 rollouts
 # (tools/config6_calibration.py, PERF.md §2)
@@ -416,6 +459,18 @@ def random_qps(B, Kst, nz, nc, rho, device):
 
 def as_f64(args):
     return [a.double() for a in args]
+
+
+def k1_launches_by_build(ak, label):
+    """K1's launches since the last reset by (nz, nc) build, as
+    ``{"<nz>x<nc>": n}``, from the wrapper's own per-build counts; raises
+    unless they sum to its total."""
+    by = {f"{nz}x{nc}": n for (name, nz, nc), n in sorted(ak.LAUNCHES_BY_SHAPE.items())
+          if name == "boxqp_solve"}
+    if sum(by.values()) != ak.LAUNCHES["boxqp_solve"]:
+        raise AssertionError(f"{label}: K1 launches by build {by} do not sum to "
+                             f"{ak.LAUNCHES['boxqp_solve']}")
+    return by
 
 
 def all_equal(outs_a, outs_b) -> bool:
@@ -1085,23 +1140,32 @@ def first_iteration_qps(ocp, cfg, dt_init, x0s):
     return list(caught[0][0]), caught[0][1]
 
 
-def per_lane_k1_record(name, args, kw, reps: int):
-    """K1 against its plain version on QPs with Hd/J/K per lane, production
-    exits. Gates: as close to the float64 plain version as the float32 plain
+def k1_qp_record(name, args, kw, reps: int, shared_hjk: bool = False,
+                 rounds_vs_f64: bool = False):
+    """K1 against its plain version on QPs with Hd/J/K per lane (or, with
+    ``shared_hjk``, one copy broadcast over the batch), production exits.
+    Gates: as close to the float64 plain version as the float32 plain
     version (slack 2x + 1e-4), per-lane rounds within one of the plain
     version, B=1 and B=8 give the first lanes' bits through both routes.
-    Returns the record of these shapes."""
+    With ``rounds_vs_f64`` (QPs whose exit tolerance is at float32's floor,
+    where the float32 plain version's own rounds part from the float64
+    one's by more than one) the rounds are held to the float64 plain
+    version instead: the kernel's largest per-lane distance from its rounds
+    no more than the float32 plain version's + 1, the mean distance no more
+    than twice its + 0.05. Returns the record of these shapes."""
     from control_box_rst_tpu_torch.ops.cuda import admm_kernel as ak
 
     B, Kst, nz = args[0].shape[:3]
     nc, iters = args[1].shape[2], kw["iters"]
-    if ak._lane_invariant(*args[:3]):
-        raise AssertionError(f"{name}: Hd/J/K reached the kernel as one shared copy")
+    if ak._lane_invariant(*args[:3]) != shared_hjk:
+        raise AssertionError(f"{name}: Hd/J/K reached the kernel "
+                             f"{'per lane' if shared_hjk else 'as one shared copy'}")
     out_k = ak.boxqp_solve(*args, **kw)
     torch.cuda.synchronize()
     launch = dict(ak.LAUNCH_INFO["boxqp_solve"])
-    if launch.get("route") != "smem" or launch.get("shared_hjk"):
-        raise AssertionError(f"{name}: expected the shared-memory route, per-lane Hd/J/K, took {launch}")
+    if launch.get("route") != "smem" or bool(launch.get("shared_hjk")) != shared_hjk:
+        raise AssertionError(f"{name}: expected the shared-memory route, shared Hd/J/K "
+                             f"{shared_hjk}, took {launch}")
     t0 = time.perf_counter()
     out_p = ak.boxqp_solve_plain(*args, **kw)
     torch.cuda.synchronize()
@@ -1112,7 +1176,20 @@ def per_lane_k1_record(name, args, kw, reps: int):
         errs[nm] = assert_as_close_as_plain(
             f"boxqp_solve {name} B={B} {nm}", out_k[i], out_p[i], out_d[i], floor=1e-4)
     d_rounds = (out_k[6] - out_p[6]).abs() / iters
-    if not bool((d_rounds <= 1).all()):
+    rounds_rec = {}
+    if rounds_vs_f64:
+        k_d = (out_k[6] - out_d[6]).abs() / iters
+        p_d = (out_p[6] - out_d[6]).abs() / iters
+        rounds_rec = dict(rounds_vs_f64_max=float(k_d.max()), plain_rounds_vs_f64_max=float(p_d.max()),
+                          rounds_vs_f64_mean=float(k_d.mean()),
+                          plain_rounds_vs_f64_mean=float(p_d.mean()),
+                          f64_mean_rounds=float((out_d[6] / iters).mean()),
+                          plain_mean_rounds=float((out_p[6] / iters).mean()))
+        if not (float(k_d.max()) <= float(p_d.max()) + 1
+                and float(k_d.mean()) <= 2 * float(p_d.mean()) + 0.05):
+            raise AssertionError(f"boxqp_solve {name}: rounds against the float64 plain "
+                                 f"version's {json.dumps(rounds_rec)}")
+    elif not bool((d_rounds <= 1).all()):
         raise AssertionError(
             f"boxqp_solve {name}: per-lane rounds differ from the plain version by up "
             f"to {float(d_rounds.max())}")
@@ -1134,9 +1211,9 @@ def per_lane_k1_record(name, args, kw, reps: int):
     alone = kernels_alone_ms({name: (call, "boxqp_solve_smem_kernel")}, reps)[name]
     rounds = float((out_k[6] / iters).sum())  # rounds this run's data needed
     t_ops = rounds * ak.solve_flops_per_round(Kst, nz, nc, iters, False) / PEAK_FP32_PER_S * 1e3
-    t_bytes = ak.io_bytes(Kst, nz, nc, B, True, shared_hjk=False) / PEAK_BYTES_PER_S * 1e3
+    t_bytes = ak.io_bytes(Kst, nz, nc, B, True, shared_hjk=shared_hjk) / PEAK_BYTES_PER_S * 1e3
     return dict(
-        Kst=Kst, nz=nz, nc=nc, batch=B, per_lane_hjk=True, n_rounds=kw["n_rounds"],
+        Kst=Kst, nz=nz, nc=nc, batch=B, per_lane_hjk=not shared_hjk, n_rounds=kw["n_rounds"],
         iters=iters, ms=ms, alone_ms=alone, plain_ms=plain_ms,
         bound_ms=max(t_ops, t_bytes),
         bound_by="operations" if t_ops >= t_bytes else "bytes",
@@ -1146,7 +1223,7 @@ def per_lane_k1_record(name, args, kw, reps: int):
         plain_err_vs_f64={k: v[1] for k, v in errs.items()},
         thread_route_err_vs_f64=e_t,
         same_it_frac=float((d_rounds == 0).float().mean()),
-        mean_rounds=rounds / B, launch=launch,
+        mean_rounds=rounds / B, launch=launch, **rounds_rec,
     )
 
 
@@ -1154,12 +1231,12 @@ def phase_nonlinear_kernels(problems, reps: int):
     """K1 against its plain version at the shapes of the nonlinear paths: the
     QPs of config 2's and config 3's first outer SQP iteration at B=4096
     (Kst=21, nc=2 and 3, Hd/J/K per lane), production exits (two rounds, no
-    KKT exit), held as ``per_lane_k1_record`` holds them. Returns name -> the
+    KKT exit), held as ``k1_qp_record`` holds them. Returns name -> the
     record of these shapes."""
     out = {}
     for name, (ocp, cfg, dt0, x0s_np) in problems.items():
         args, kw = first_iteration_qps(ocp, cfg, dt0, torch.as_tensor(x0s_np, device="cuda"))
-        out[name] = per_lane_k1_record(name, args, kw, reps)
+        out[name] = k1_qp_record(name, args, kw, reps)
         del args
     log("kernels[nonlinear shapes]: " + json.dumps(out))
     return out
@@ -1505,9 +1582,10 @@ def phase_nonuniform_closed_loop(x0s_np, trials: int):
 def phase_nonuniform_vs_plain(ctrl, plant, x0s, u, n_act):
     """The batch of ``phase_nonuniform_closed_loop`` through ``backend='plain'``
     for its first NU_PLAIN_STEPS steps (no kernel: ~1 s of eager launches per
-    SQP iteration, 612 s for all 25 steps on an H100, so the depth is cut and
-    it runs last): the share of lane-steps on which both backends chose the
-    same active horizon, and max |u_fused - u_plain| on those, reported."""
+    SQP iteration, 612 s for all 25 steps on an H100, 173 s for 10, 75 s for 4, so the
+    depth is cut and it runs last): the share of lane-steps on which both
+    backends chose the same active horizon, and max |u_fused - u_plain| on
+    those, reported."""
     from control_box_rst_tpu_torch.ops.cuda import admm_kernel as ak
     from control_box_rst_tpu_torch.parallel import make_batched_closed_loop
 
@@ -1532,16 +1610,16 @@ def phase_nonuniform_vs_plain(ctrl, plant, x0s, u, n_act):
 
 
 def phase_nonuniform_kernels(ocp_cfg, x0s_np, kept, reps: int):
-    """K1 against its plain version (``per_lane_k1_record``) on config 4's
+    """K1 against its plain version (``k1_qp_record``) on config 4's
     first-iteration QPs (Kst=11, B=4096) and on the QPs of one adaptive
     closed-loop step (Kst=16, lanes of mixed horizons). Returns name -> the
     record of these shapes."""
     ocp, cfg = ocp_cfg
     args, kw = first_iteration_qps(ocp, cfg, 0.1, torch.as_tensor(x0s_np, device="cuda"))
-    out = {"nonuniform_ms_timeopt": per_lane_k1_record("nonuniform_ms_timeopt", args, kw, reps)}
+    out = {"nonuniform_ms_timeopt": k1_qp_record("nonuniform_ms_timeopt", args, kw, reps)}
     del args
     out["nonuniform_adaptive_step"] = dict(
-        per_lane_k1_record("nonuniform_adaptive_step", *kept, reps), step=NU_CHECK_STEP)
+        k1_qp_record("nonuniform_adaptive_step", *kept, reps), step=NU_CHECK_STEP)
     log("kernels[config 4 shapes]: " + json.dumps(out))
     return out
 
@@ -2555,7 +2633,7 @@ def phase_kernels_nz6(reps: int):
     rounds of fixed work against the float32 plain version, x and duals at
     5x the flagship tolerances; B=1, 8 and 1000 give the first lanes' bits,
     so does the one-thread-per-lane route); the HS-unc first-iteration QPs
-    of the chip batch (B=4096) as ``per_lane_k1_record`` holds them, and B =
+    of the chip batch (B=4096) as ``k1_qp_record`` holds them, and B =
     1000 the first lanes' bits there. Records the route, shared memory,
     resident lanes, registers and spills (``-Xptxas -v``), times and the
     bound."""
@@ -2602,7 +2680,7 @@ def phase_kernels_nz6(reps: int):
     del args, out_k, out_p, out_t
     x0s = torch.as_tensor(hs_x0s(HS_BATCH), device="cuda")
     args, kw = first_iteration_qps(ocp, cfg, 0.1, x0s)
-    rec.update(per_lane_k1_record("hermite_simpson_unc", args, kw, reps))
+    rec.update(k1_qp_record("hermite_simpson_unc", args, kw, reps))
     full = ak.boxqp_solve(*args, **kw)
     sub = ak.boxqp_solve(*[a[:1000] for a in args], **kw)
     torch.cuda.synchronize()
@@ -2611,6 +2689,87 @@ def phase_kernels_nz6(reps: int):
     rec["smem_bytes_per_lane"] = ak.state_bytes_per_lane(Kst, nz, nc, False)
     log(json.dumps({"kernels_nz6": rec}))
     return rec
+
+
+def phase_kernels_nz5(reps: int):
+    """K1 built for (nz, nc) = (5, 2) and (5, 3), the builds that only the
+    master's zoo launches (ZOO_K1_BUILDS: the parallel integrators, two
+    states and two controls; the free-space rocket, three states). Per
+    build: the quotient against the division on 2^24 pairs; random QPs at
+    Kst=21 with Hd/J/K per lane (four rounds of fixed work against the
+    float32 plain version, x and duals at 5x the flagship tolerances; B=1
+    and 8 give the first lanes' bits on both routes, and the routes agree
+    with the plain version); the zoo system's own OCP (its config in the
+    zoo golden, through the loader) and the QPs of its first SQP iteration
+    at ZOO_K1_BATCH initial states around the config's x0 (lane 0: that x0)
+    held as ``k1_qp_record`` holds them (Hd/J/K as the batch hands them:
+    one hoisted copy for the linear parallel integrators): as close to the
+    float64 plain version as the float32 plain version, B=1 and 8 the first
+    lanes' bits, times and bound; their rounds against the float64 plain
+    version's (``rounds_vs_f64``: the zoo's qp_tol 1e-7 is at float32's
+    floor, and on the rocket's QPs the float32 plain version itself takes
+    two rounds more than the float64 one on some lanes). Records registers and spills
+    (``-Xptxas -v``). Returns the records by (nz, nc)."""
+    from control_box_rst_tpu_torch.core import config as tc
+    from control_box_rst_tpu_torch.ops.cuda import admm_kernel as ak
+    from control_box_rst_tpu_torch.ops.cuda import build
+
+    gold = np.load(MASTER_ZOO_GOLDEN)
+    x5 = {k: 5 * v for k, v in X_TOL.items()}
+    d5 = {k: 5 * v for k, v in DUAL_TOL.items()}
+    out = {}
+    for (nz, nc), system in ZOO_K1_BUILDS.items():
+        label = f"K1 ({nz}, {nc})"
+        cfg = json.loads(str(gold[f"{system}/config"]))
+        ctrl, _ = tc.build_controller(cfg)  # float32 on the card
+        ocp = ctrl.ocp
+        Kst = ocp.N + 1
+        if (Kst, ocp.nz, ocp.nc) != (21, nz, nc):
+            raise AssertionError(f"{label}: {system} gives Kst {Kst}, nz {ocp.nz}, nc {ocp.nc}")
+        rec = dict(system=system, Kst=Kst, nz=nz, nc=nc)
+        lib = build.library_path(*ak.build_spec(nz, nc)).name
+        report = build.ptxas_report(build.BUILD_OUTPUT.get(lib, ""))
+        rec["ptxas"] = {k: v for k, v in report.items() if "boxqp_solve" in k or "admm_round" in k}
+        rec["quotient_pairs_bit_equal"] = check_quotient(ak, nz, nc)
+        qp = ctrl.cfg.qp
+        fixed_kw = dict(sigma=qp.sigma, alpha=qp.alpha, rho_eq_scale=qp.rho_eq_scale,
+                        rho_min=qp.rho_min, rho_max=qp.rho_max, n_rounds=4,
+                        iters=qp.iters_per_round, tol=0.0)
+        args = random_qps(1000, Kst, nz, nc, 0.1, "cuda")
+        out_k = ak.boxqp_solve(*args, **fixed_kw)
+        torch.cuda.synchronize()
+        launch = dict(ak.LAUNCH_INFO["boxqp_solve"])
+        if launch.get("route") != "smem" or launch.get("shared_hjk"):
+            raise AssertionError(f"{label}: expected the shared-memory route, per-lane Hd/J/K, took {launch}")
+        out_t = ak.boxqp_solve(*args, **fixed_kw, route="thread")
+        out_p = ak.boxqp_solve_plain(*args, **fixed_kw)
+        for route, out_r in (("smem", out_k), ("thread", out_t)):
+            rec[f"random_fixed4_x_{route}"] = assert_close(
+                f"{label} random {route} x", out_r[0], out_p[0], **x5)
+            assert_close(f"{label} random {route} y_d", out_r[2], out_p[2], **d5)
+            assert_close(f"{label} random {route} y_b", out_r[3], out_p[3], **d5)
+            for n in (1, 8):
+                out_n = ak.boxqp_solve(*[a[:n] for a in args], **fixed_kw, route=route)
+                torch.cuda.synchronize()
+                if not all_equal(out_n, [o[:n] for o in out_r]):
+                    raise AssertionError(f"{label} random, route {route}: B={n} disagrees with "
+                                         "the first lanes")
+        del args, out_k, out_p, out_t
+        rng = np.random.default_rng(10 * nz + nc)
+        x0 = np.asarray(cfg["x0"], dtype=np.float32)
+        x0s = x0 + rng.uniform(-0.25, 0.25, (ZOO_K1_BATCH, x0.size)).astype(np.float32)
+        x0s[0] = x0
+        args, kw = first_iteration_qps(ocp, ctrl.cfg, float(cfg["experiment"]["dt"]),
+                                       torch.as_tensor(x0s, device="cuda"))
+        # a linear system's batch hoists one copy of Hd/J/K (the zoo's run at
+        # B=1 takes either form: the random QPs above hold the per-lane one)
+        shared = ak._lane_invariant(*args[:3])
+        rec.update(k1_qp_record(f"zoo_{system}", args, kw, reps, shared_hjk=shared,
+                                rounds_vs_f64=True))
+        rec["smem_bytes_per_lane"] = ak.state_bytes_per_lane(Kst, nz, nc, shared)
+        log(json.dumps({f"kernels_nz{nz}_nc{nc}": rec}))
+        out[nz, nc] = rec
+    return out
 
 
 def _open_loop_record(name, solver, x0s, trials, n_single, ak, per_lane_hjk):
@@ -2627,6 +2786,7 @@ def _open_loop_record(name, solver, x0s, trials, n_single, ak, per_lane_hjk):
         U, obj, status, iters = solver(x0s)
         torch.cuda.synchronize()
         n_launch = ak.LAUNCHES["boxqp_solve"]
+        by_build = k1_launches_by_build(ak, name)
     finally:
         restore()
     route = dict(ak.LAUNCH_INFO["boxqp_solve"])
@@ -2645,8 +2805,8 @@ def _open_loop_record(name, solver, x0s, trials, n_single, ak, per_lane_hjk):
     best = _best_of(lambda: solver(x0s), trials)
     rec = dict(batch=B, solves_per_s=B / best, batch_solve_ms=best * 1e3, converged_frac=conv,
                mean_sqp_iters=float(iters.float().mean()), max_sqp_iters=lock,
-               boxqp_solve_launches=n_launch, kernel_route=route,
-               boxqp_solve_calls=dict(one_shot=calls["one_shot"], outer=calls["outer"],
+               boxqp_solve_launches=n_launch, boxqp_solve_launches_by_build=by_build,
+               kernel_route=route, boxqp_solve_calls=dict(one_shot=calls["one_shot"], outer=calls["outer"],
                                       per_lane_hjk=calls["per_lane_hjk_calls"]),
                **_b1_latencies(solver, x0s[:1], n_single))
     return rec, U, obj, status, n_launch
@@ -2737,8 +2897,8 @@ def phase_hs_closed_loop():
     every u finite; the usable-step fraction of the first 64 rollouts no
     lower than the JAX package's own float32 run of them
     (``tools/config6_calibration.py``); max |u_fused - u_plain| <= 1e-3 over
-    the first HS_CL_PLAIN_STEPS steps of the same batch and over all 40
-    steps of its first HS_CL_PLAIN_LANES rollouts (plain =
+    the first HS_CL_PLAIN_STEPS steps of the same batch and over the first
+    HS_CL_PLAIN_ALL_STEPS steps of its first HS_CL_PLAIN_LANES rollouts (plain =
     ``backend='plain'``). Returns (K1 launches, record)."""
     from control_box_rst_tpu_torch.entry import rollouts_hs
     from control_box_rst_tpu_torch.ops.cuda import admm_kernel as ak
@@ -2790,14 +2950,15 @@ def phase_hs_closed_loop():
         raise AssertionError(f"config 6 closed loop: max |u_fused - u_plain| {u_dev:.3e} > {ERR_GATE}")
     # the warm-started later steps too, on the first rollouts
     t1 = time.perf_counter()
-    res_q = make_batched_closed_loop(plain_ctrl, plant, T, dt)(x0s[:HS_CL_PLAIN_LANES])
+    T_all = HS_CL_PLAIN_ALL_STEPS
+    res_q = make_batched_closed_loop(plain_ctrl, plant, T_all, dt)(x0s[:HS_CL_PLAIN_LANES])
     torch.cuda.synchronize()
     plain_all_s = time.perf_counter() - t1
     if ak.LAUNCHES["boxqp_solve"]:
         raise AssertionError("config 6 closed loop: the plain backend launched K1")
-    u_dev_all = float((res.u[:HS_CL_PLAIN_LANES] - res_q.u).abs().max())
+    u_dev_all = float((res.u[:HS_CL_PLAIN_LANES, :T_all] - res_q.u).abs().max())
     if not u_dev_all <= ERR_GATE:
-        raise AssertionError(f"config 6 closed loop: max |u_fused - u_plain| over all {T} steps of "
+        raise AssertionError(f"config 6 closed loop: max |u_fused - u_plain| over {T_all} steps of "
                              f"the first {HS_CL_PLAIN_LANES} rollouts {u_dev_all:.3e} > {ERR_GATE}")
 
     x1 = x0s[:1]
@@ -2818,6 +2979,7 @@ def phase_hs_closed_loop():
         mean_sqp_iters=float(res.info["sqp_iters"].float().mean()),
         max_u_dev_vs_plain=u_dev, plain_steps=HS_CL_PLAIN_STEPS, plain_rollout_s=plain_s,
         max_u_dev_vs_plain_all_steps=u_dev_all, plain_all_steps_lanes=HS_CL_PLAIN_LANES,
+        plain_all_steps=T_all,
         plain_all_steps_rollout_s=plain_all_s,
         mean_final_state_norm=float(res.x_true[:, -1].norm(dim=-1).mean()),
         p50_single_step_ms=float(np.percentile(lats, 50) * 1e3),
@@ -3004,20 +3166,441 @@ def profile_new_paths(grid_solvers, x0s_main_np):
     return prof
 
 
-def nz6_kernel_record(rec, launches):
-    """The kernels-line entry of K1's (6, 4) specialisation."""
+def k1_build_record(rec, launches):
+    """The kernels-line entry of one of K1's other builds ((6, 4), (5, 2),
+    (5, 3)) from its kernel-phase record."""
+    nz, nc = rec["nz"], rec["nc"]
     return dict(
-        name="boxqp_solve[nz6_nc4]", route="cuda",
+        name=f"boxqp_solve[nz{nz}_nc{nc}]", route="cuda",
         source="control_box_rst_tpu_torch/csrc/admm_kernel.cu",
         replaces="control_box_rst_tpu/ops/pallas/admm_kernel.py:483",
         launches=launches, max_abs_err=rec["max_abs_err"], ms=rec["ms"],
         plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
-        library_ms=None, on_main_path=True, batch=rec["batch"], Kst=rec["Kst"], nz=6, nc=4,
+        library_ms=None, on_main_path=True, batch=rec["batch"], Kst=rec["Kst"], nz=nz, nc=nc,
         alone_ms=rec["alone_ms"], launch=rec["launch"], ptxas=rec["ptxas"],
         err_vs_f64=rec["err_vs_f64"], plain_err_vs_f64=rec["plain_err_vs_f64"],
         same_it_frac=rec["same_it_frac"], mean_rounds=rec["mean_rounds"],
         smem_bytes_per_lane=rec["smem_bytes_per_lane"],
     )
+
+# --------------------------------------------------------------------------
+# phase master: the config loader and the master CLI
+# --------------------------------------------------------------------------
+
+MASTER_EXAMPLES = {
+    "config1": "config1_double_integrator.yaml",
+    "config2": "config2_van_der_pol_ms.yaml",
+    "config3": "config3_time_optimal.yaml",
+    "config4": "config4_nonuniform_time_optimal.yaml",
+    "config5": "config5_kalman_dual_mode.yaml",         # with its output noise
+    "config5_noise0": "config5_kalman_dual_mode.yaml",  # noise set to 0: against the golden
+    "config6": "config6_hermite_simpson.yaml",
+}
+MASTER_GOLDEN = ROOT / "tests" / "golden" / "torch_master_examples.npz"
+MASTER_SOLVERS_GOLDEN = ROOT / "tests" / "golden" / "torch_master_solvers.npz"
+MASTER_ZOO_GOLDEN = ROOT / "tests" / "golden" / "torch_master_zoo.npz"
+MASTER_GRID = 64         # x01 x x02 points of the batched config-1 run: 4096 rollouts
+MASTER_BATCH_TRIALS = 3  # the batched run: best of MASTER_BATCH_TRIALS
+MASTER_PLAIN_STEPS = 10  # steps of the batched run also run by the plain backend
+MASTER_SOLVER_STEPS = 10  # steps of config 1 by IP and by LM
+MASTER_PART_TOL = 0.05   # a control this far from the golden's is another decision
+                         # (tools/master_golden.py's PART_TOL)
+MASTER_GATE_FLOOR = 1e-3  # the golden gate: max(2 x the reference's own float32, this)
+# the box-QP builds that only the loader's zoo launches, and its system that
+# launches each: the parallel integrators (two controls: nz 5, nc 2) and the
+# free-space rocket (three states: nz 5, nc 3)
+ZOO_K1_BUILDS = {(5, 2): "parallel_integrators", (5, 3): "free_space_rocket"}
+ZOO_K1_BATCH = 4096  # lanes of those systems' first-iteration QPs in the kernel phase
+
+
+def catch_master_run():
+    """Patch what a master run goes through, to read it back: the solves'
+    lock-step iterations by kind (sqp, ip, lm; the benchmarks' timed SQP
+    solves included), the SQP statuses, and the results the run records (the ClosedLoopResult of a closed loop, the
+    ControlOutput of an open loop). Returns (record, restore)."""
+    from control_box_rst_tpu_torch import sim
+    from control_box_rst_tpu_torch.control import predictive
+    from control_box_rst_tpu_torch.sim import benchmarks
+
+    rec = dict(sqp=0, ip=0, lm=0, calls=0, status=[], feas=[], results=[])
+    patched = []
+
+    def wrap(mod, name, fn):
+        real = getattr(mod, name)
+        patched.append((mod, name, real))
+        setattr(mod, name, fn(real))
+
+    def solve(kind):
+        def make(real):
+            def run(*args, **kw):
+                res = real(*args, **kw)
+                rec[kind] += int(res.iterations.max())
+                rec["calls"] += 1
+                if kind == "sqp":
+                    rec["status"].append(int(res.status.reshape(-1)[0]))
+                rec["feas"].append(float(res.feas_res.max()))
+                return res
+            return run
+        return make
+
+    def keep(real):
+        def run(*args, **kw):
+            out = real(*args, **kw)
+            rec["results"].append(out)
+            return out
+        return run
+
+    for kind in ("sqp", "ip", "lm"):
+        wrap(predictive, f"{kind}_solve", solve(kind))
+    wrap(benchmarks, "sqp_solve", solve("sqp"))
+    for name in ("run_closed_loop", "run_open_loop"):
+        wrap(sim, name, keep)
+    wrap(benchmarks, "benchmark_varying_initial_state", keep)
+
+    def restore():
+        for mod, name, real in reversed(patched):
+            setattr(mod, name, real)
+
+    return rec, restore
+
+
+def _read_tsv(path: pathlib.Path) -> np.ndarray:
+    return np.loadtxt(path, delimiter="\t", ndmin=2)
+
+
+def _golden_distance(label, u, x, gold, key, gates=True):
+    """max |u − u_golden| and |x − x_golden| over the steps before the
+    reference's own float32 run parts from its float64 one, the gates
+    max(2 x the reference's own float32 distance, MASTER_GATE_FLOOR) on both,
+    and the first step at which the port's float32 controls part from the
+    golden's (reported)."""
+    u64, x64 = gold[f"{key}/u"], gold[f"{key}/x"]
+    if u.shape != u64.shape or x.shape != x64.shape:
+        raise AssertionError(f"{label}: shapes {u.shape}, {x.shape} against the golden's "
+                             f"{u64.shape}, {x64.shape}")
+    part = int(gold[f"{key}/part_step"])
+    du = np.abs(u - u64).reshape(len(u), -1).max(axis=1)
+    dx = np.abs(x - x64).reshape(len(x), -1).max(axis=1)
+    parted = np.nonzero(du > MASTER_PART_TOL)[0]
+    gate_u = max(2.0 * float(gold[f"{key}/ref_f32_u"]), MASTER_GATE_FLOOR)
+    gate_x = max(2.0 * float(gold[f"{key}/ref_f32_x"]), MASTER_GATE_FLOOR)
+    out = dict(
+        gated_steps=part, ref_part_step=part,
+        port_part_step=int(parted[0]) if parted.size else len(u),
+        max_u_err=float(du[:part].max()) if part else 0.0,
+        max_x_err=float(dx[:part + 1].max()),
+        gate_u=gate_u, gate_x=gate_x,
+        ref_f32_u=float(gold[f"{key}/ref_f32_u"]), ref_f32_x=float(gold[f"{key}/ref_f32_x"]),
+        max_u_err_all_steps=float(du.max()), max_x_err_all_steps=float(dx.max()),
+    )
+    if gates and not (out["max_u_err"] <= gate_u and out["max_x_err"] <= gate_x):
+        raise AssertionError(f"{label}: {json.dumps(out)} misses the golden gate")
+    return out
+
+
+def _master_example(name, tmp, gold):
+    """One example YAML through ``master.main`` (in this process, so that
+    the launch counters and the catch see it). Returns its record."""
+    import yaml
+
+    from control_box_rst_tpu_torch import master
+    from control_box_rst_tpu_torch.ops.cuda import admm_kernel as ak
+    from control_box_rst_tpu_torch.ops.cuda import btridiag_kernel as bk
+
+    path = ROOT / "examples" / MASTER_EXAMPLES[name]
+    cfg = yaml.safe_load(path.read_text())
+    if name == "config5_noise0":
+        cfg["plant"]["noise"] = {"output_std": 0.0}
+        path = tmp / f"{name}.yaml"
+        path.write_text(yaml.safe_dump(cfg))
+    out = tmp / name
+    calls, restore = catch_master_run()
+    ak.reset_launch_counts()
+    bk.reset_launch_counts()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = master.main(["--config", str(path), "--out", str(out), "--format", "tsv"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1 = ak.LAUNCHES["boxqp_solve"]
+        by_build = k1_launches_by_build(ak, f"master {name}")
+    finally:
+        restore()
+    if rc != 0 or len(calls["results"]) != 1:
+        raise AssertionError(f"master {name}: rc {rc}, {len(calls['results'])} recorded runs")
+    open_loop = cfg["experiment"].get("task") == "open_loop"
+    if open_loop:
+        res, _ = calls["results"][0]  # one unbatched solve: no batch dim
+        u, x = res.u_seq, res.x_seq
+        steps, usable = 1, float(res.ok.float().mean())
+        tsv_u = _read_tsv(out / "signals" / "planned_controls.tsv")[:, 1:]
+    else:
+        res = calls["results"][0]
+        u, x = res.u[0], res.x_true[0]
+        steps, usable = int(u.shape[0]), float(res.ok.float().mean())
+        tsv_u = _read_tsv(out / "signals" / "applied_controls.tsv")[:, 1:]
+        if int(res.info["sqp_iters"].sum()) != calls["sqp"]:
+            raise AssertionError(f"master {name}: the recorded sqp_iters sum to "
+                                 f"{int(res.info['sqp_iters'].sum())}, the solves to {calls['sqp']}")
+    u, x = u.double().cpu().numpy(), x.double().cpu().numpy()
+    if not (np.isfinite(u).all() and np.isfinite(x).all()):
+        raise AssertionError(f"master {name}: non-finite controls or states")
+    if not np.allclose(tsv_u, u, rtol=1e-7, atol=1e-9):
+        raise AssertionError(f"master {name}: the exported controls are not the run's")
+    if k1 <= 0 or k1 != calls["sqp"]:
+        raise AssertionError(f"master {name}: {k1} K1 launches, lock-step SQP iterations "
+                             f"{calls['sqp']}")
+    rec = dict(wall_s=wall, steps=steps, mpc_steps_per_s=steps / wall, boxqp_solve_launches=k1,
+               lock_step_sqp_iterations=calls["sqp"], usable_step_frac=usable,
+               boxqp_solve_launches_by_build=by_build,
+               files=sorted(p.name for p in (out / "signals").iterdir()))
+    if name in ("config5", "config5_noise0"):
+        S = torch.eye(2, device="cuda")
+        _switch_contract(f"master {name}", res, S, 0.09)
+        la = res.info["local_active"][0]
+        over = (res.u[0, :, 0].abs() - 1.0)[~la]
+        rec["max_u_over_box_on_mpc_steps"] = float(over.max()) if over.numel() else -1.0
+        rec["switch_step"] = int(la.to(torch.int8).argmax()) if bool(la.any()) else steps
+        if not rec["max_u_over_box_on_mpc_steps"] <= DM_BOX_GATE:
+            raise AssertionError(f"master {name}: |u| - 1 = {rec['max_u_over_box_on_mpc_steps']:.3e}"
+                                 f" on an MPC step > {DM_BOX_GATE:.3e}")
+    if name != "config5":
+        rec["golden"] = _golden_distance(f"master {name}", u, x, gold, name)
+        if not open_loop:
+            # no lower than the reference's own float32 run of the YAML
+            ref = float(gold[f"{name}/ref_f32_usable"])
+            rec["ref_f32_usable_step_frac"] = ref
+            if usable < ref:
+                raise AssertionError(f"master {name}: usable-step fraction {usable} < the "
+                                     f"reference's own float32 run's {ref}")
+    log(f"master {name}: {json.dumps(rec)}")
+    return rec
+
+
+def _batched_config1(tmp):
+    """Config 1's YAML as ``benchmark_varying_x0`` over a MASTER_GRID² grid
+    of initial states in [-1, 1]²: MASTER_GRID² rollouts of 70 steps of the
+    YAML's H=50 OCP, through ``run_experiment``; gates: K1 launches == the
+    sum of the lock-step SQP iterations > 0, usable-step fraction >= 0.99,
+    max |u_fused - u_plain| <= 1e-3 over the first MASTER_PLAIN_STEPS steps
+    (plain = the same controller with backend 'plain', linsolver 'bcr')."""
+    import yaml
+
+    from control_box_rst_tpu_torch.core import config as tc
+    from control_box_rst_tpu_torch.ops.cuda import admm_kernel as ak
+    from control_box_rst_tpu_torch.sim.benchmarks import benchmark_varying_initial_state
+
+    cfg = yaml.safe_load((ROOT / "examples" / MASTER_EXAMPLES["config1"]).read_text())
+    grid = np.linspace(-1.0, 1.0, MASTER_GRID).tolist()
+    T = int(cfg["experiment"]["T_steps"])
+    cfg["experiment"] = {"task": "benchmark_varying_x0", "T_steps": T, "dt": 0.1,
+                         "benchmark": {"x01": grid, "x02": grid}}
+    B = MASTER_GRID * MASTER_GRID
+    calls, restore = catch_master_run()
+    ak.reset_launch_counts()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec_sig = tc.run_experiment(cfg)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        k1 = ak.LAUNCHES["boxqp_solve"]
+        by_build = k1_launches_by_build(ak, "master batch")
+    finally:
+        restore()
+    res, x0s = calls["results"][0]
+    lock = res.info["sqp_iters"].amax(dim=0)
+    if k1 <= 0 or k1 != int(lock.sum()) or k1 != calls["sqp"]:
+        raise AssertionError(f"master batch: {k1} K1 launches, lock-step {lock.tolist()}, "
+                             f"solves {calls['sqp']}")
+    if res.u.shape != (B, T, 1) or not bool(torch.isfinite(res.u).all()):
+        raise AssertionError(f"master batch: u {tuple(res.u.shape)} or non-finite")
+    if rec_sig.get("benchmark/controls")["matrices"][0].shape != (B, T, 1):
+        raise AssertionError("master batch: the recorded controls have the wrong shape")
+    usable = float(res.ok.float().mean())
+    if usable < CONV_GATE:
+        raise AssertionError(f"master batch: usable-step fraction {usable:.4f} < {CONV_GATE}")
+    best = min(first_s, _best_of(lambda: tc.run_experiment(cfg), MASTER_BATCH_TRIALS - 1))
+    # the same rollouts' first steps by the plain backend (no kernel), its
+    # block-tridiagonal solves by cyclic reduction: the plain ADMM's stage
+    # loop ('scan') took 346 s for these 10 steps on the card (8 SQP
+    # iterations of 200 ADMM iterations a step, eager kernels)
+    ctrl, system = tc.build_controller(cfg)
+    plant = tc.build_plant(cfg, system)
+    plain = ctrl.replace(cfg=ctrl.cfg.replace(
+        qp=ctrl.cfg.qp.replace(backend="plain", linsolver="bcr")))
+    ak.reset_launch_counts()
+    t0 = time.perf_counter()
+    res_p, _ = benchmark_varying_initial_state(plant, plain, grid, grid, MASTER_PLAIN_STEPS, 0.1)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    if ak.LAUNCHES["boxqp_solve"]:
+        raise AssertionError("master batch: the plain backend launched the box-QP kernel")
+    dev = float((res.u[:, :MASTER_PLAIN_STEPS] - res_p.u).abs().max())
+    if not dev <= ERR_GATE:
+        raise AssertionError(f"master batch: max |u_fused - u_plain| {dev:.3e} > {ERR_GATE}")
+    x_T = res.x_true[:, -1].norm(dim=-1)
+    out = dict(batch=B, t_steps=T, rollouts_per_s=B / best, mpc_steps_per_s=B * T / best,
+               rollout_batch_s=best, first_batch_s=first_s, boxqp_solve_launches=k1,
+               boxqp_solve_launches_by_build=by_build,
+               lock_step_sqp_iters=lock.tolist(), mean_sqp_iters=float(res.info["sqp_iters"].float().mean()),
+               usable_step_frac=usable, max_u_fused_vs_plain=dev, plain_steps=MASTER_PLAIN_STEPS,
+               plain_s=plain_s, mean_final_state_norm=float(x_T.mean()),
+               max_final_state_norm=float(x_T.max()))
+    log(f"master batch: {json.dumps(out)}")
+    return out
+
+
+def _master_solvers(tmp, gold):
+    """Config 1's YAML with ``solver: {type: ip}`` and ``{type: lm}``,
+    MASTER_SOLVER_STEPS steps at B=1 through ``run_experiment``: K4 launches
+    == the lock-step iterations > 0, u finite, IP's |u| <= 1 + 1e-6; the
+    distance to the golden reported beside the reference's own float32's.
+    Then one ``benchmark_increasing_n`` task (N 10, 20, 40), reported."""
+    import yaml
+
+    from control_box_rst_tpu_torch.core import config as tc
+    from control_box_rst_tpu_torch.ops.cuda import admm_kernel as ak
+    from control_box_rst_tpu_torch.ops.cuda import btridiag_kernel as bk
+
+    base = yaml.safe_load((ROOT / "examples" / MASTER_EXAMPLES["config1"]).read_text())
+    out = {}
+    for kind in ("ip", "lm"):
+        cfg = copy.deepcopy(base)
+        cfg["experiment"]["T_steps"] = MASTER_SOLVER_STEPS
+        cfg["solver"] = {"type": kind}
+        calls, restore = catch_master_run()
+        bk.reset_launch_counts()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tc.run_experiment(cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            k4 = bk.LAUNCHES["btridiag_factor_solve_inplace"]
+        finally:
+            restore()
+        res = calls["results"][0]
+        u, x = res.u[0].double().cpu().numpy(), res.x_true[0].double().cpu().numpy()
+        if k4 <= 0 or k4 != calls[kind] or int(res.info["sqp_iters"].sum()) != calls[kind]:
+            raise AssertionError(f"master {kind}: {k4} K4 launches, lock-step {calls[kind]}")
+        if not np.isfinite(u).all():
+            raise AssertionError(f"master {kind}: non-finite u")
+        if kind == "ip" and not float(np.abs(u).max()) <= 1.0 + 1e-6:
+            raise AssertionError(f"master ip: |u| = {float(np.abs(u).max())} > 1 + 1e-6")
+        out[kind] = dict(
+            wall_s=wall, steps=MASTER_SOLVER_STEPS, mpc_steps_per_s=MASTER_SOLVER_STEPS / wall,
+            btridiag_factor_solve_inplace_launches=k4, lock_step_iterations=calls[kind],
+            usable_step_frac=float(res.ok.float().mean()), max_abs_u=float(np.abs(u).max()),
+            golden=_golden_distance(f"master {kind}", u, x, gold, f"config1_{kind}", gates=False))
+        log(f"master {kind}: {json.dumps(out[kind])}")
+    cfg = copy.deepcopy(base)
+    cfg["experiment"] = {"task": "benchmark_increasing_n", "dt": 0.1,
+                         "benchmark": {"N_values": [10, 20, 40]}}
+    calls, restore = catch_master_run()
+    ak.reset_launch_counts()
+    try:
+        rec = tc.run_experiment(cfg)
+        torch.cuda.synchronize()
+        k1 = ak.LAUNCHES["boxqp_solve"]
+        by_build = k1_launches_by_build(ak, "master increasing N")
+    finally:
+        restore()
+    if k1 <= 0 or k1 != calls["sqp"]:
+        raise AssertionError(f"master increasing N: {k1} K1 launches, lock-step {calls['sqp']}")
+    get = lambda n: rec.get(f"benchmark/{n}")["matrices"][0].tolist()
+    out["increasing_n"] = dict(n_values=get("n_values"), solve_times_s=get("solve_times"),
+                               objectives=get("objectives"), status=get("status"),
+                               boxqp_solve_launches=k1,
+                               boxqp_solve_launches_by_build=by_build)
+    log(f"master increasing N: {json.dumps(out['increasing_n'])}")
+    return out
+
+
+def _master_zoo():
+    """One open-loop task of each of the twelve registered systems through
+    ``run_experiment`` (the configs stored in the zoo golden): U finite;
+    where the reference's float64 solve converged, |U - U_golden| <=
+    max(2 x the reference's own float32 distance, MASTER_GATE_FLOOR); the
+    SQP status, iterations and K1 launches (== the iterations) reported."""
+    from control_box_rst_tpu_torch.core import config as tc
+    from control_box_rst_tpu_torch.ops.cuda import admm_kernel as ak
+
+    gold = np.load(MASTER_ZOO_GOLDEN)
+    names = sorted({k.split("/")[0] for k in gold.files})
+    out = {}
+    for name in names:
+        cfg = json.loads(str(gold[f"{name}/config"]))
+        calls, restore = catch_master_run()
+        ak.reset_launch_counts()
+        try:
+            rec = tc.run_experiment(cfg)
+            torch.cuda.synchronize()
+            k1 = ak.LAUNCHES["boxqp_solve"]
+            by_build = k1_launches_by_build(ak, f"master zoo {name}")
+        finally:
+            restore()
+        U = np.asarray(rec.get("planned_controls")["values"], dtype=np.float64)
+        X = np.asarray(rec.get("planned_states")["values"], dtype=np.float64)
+        if not (np.isfinite(U).all() and np.isfinite(X).all()):
+            raise AssertionError(f"master zoo {name}: non-finite U or X")
+        if k1 <= 0 or k1 != calls["sqp"]:
+            raise AssertionError(f"master zoo {name}: {k1} K1 launches, lock-step {calls['sqp']}")
+        converged = bool(gold[f"{name}/converged"])
+        err = float(np.abs(U - gold[f"{name}/u"]).max())
+        gate = max(2.0 * float(gold[f"{name}/ref_f32_u"]), MASTER_GATE_FLOOR)
+        out[name] = dict(status=calls["status"][0], sqp_iterations=calls["sqp"],
+                         feas_res=calls["feas"][0], boxqp_solve_launches=k1,
+                         boxqp_solve_launches_by_build=by_build,
+                         max_u_err=err, gate=gate if converged else None,
+                         ref_f32_u=float(gold[f"{name}/ref_f32_u"]))
+        if converged and not err <= gate:
+            raise AssertionError(f"master zoo {name}: |U - U_golden| {err:.3e} > {gate:.3e}")
+    log(f"master zoo: {json.dumps(out)}")
+    return out
+
+
+def phase_master():
+    """The config loader and the master CLI (``core/config.py``,
+    ``master.py``) on the card, float32: (1) the six example YAMLs at their
+    own settings through ``master.main``, config 5 twice (with its noise:
+    the switch contract and the box gate; with noise 0: the golden), each
+    against the float64 golden of ``tools/master_golden.py`` on the steps
+    before the reference's own float32 run parts from it; (2) config 1 as a
+    batch of 4096 rollouts; (3) config 1 by IP and by LM, and a horizon
+    sweep; (4) the twelve systems of the zoo. Returns (K1 launches by path,
+    K4 launches by path, K1 launches by path and build, record). Every example's
+    usable-step fraction is no lower than the reference's own float32 run's
+    (stored in the golden)."""
+    import tempfile
+
+    gold = np.load(MASTER_GOLDEN)
+    solvers_gold = np.load(MASTER_SOLVERS_GOLDEN)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = pathlib.Path(tmp)
+        examples = {name: _master_example(name, tmp, gold) for name in MASTER_EXAMPLES}
+        examples_s = time.perf_counter() - t_phase
+        batch = _batched_config1(tmp)
+        solvers = _master_solvers(tmp, solvers_gold)
+    zoo = _master_zoo()
+    runs = {f"master_{n}": r for n, r in examples.items()}
+    runs.update(master_batch_config1=batch, master_increasing_n=solvers["increasing_n"],
+                **{f"master_zoo_{n}": r for n, r in zoo.items()})
+    k1_paths, k1_builds = {}, {}
+    for name, r in runs.items():
+        path = "master_zoo" if name.startswith("master_zoo_") else name
+        k1_paths[path] = k1_paths.get(path, 0) + r["boxqp_solve_launches"]
+        builds = k1_builds.setdefault(path, {})
+        for b, n in r["boxqp_solve_launches_by_build"].items():
+            builds[b] = builds.get(b, 0) + n
+    k4_paths = {f"master_{k}": solvers[k]["btridiag_factor_solve_inplace_launches"]
+                for k in ("ip", "lm")}
+    rec = dict(examples=examples, examples_s=examples_s, batch=batch, solvers=solvers, zoo=zoo,
+               phase_s=time.perf_counter() - t_phase)
+    return k1_paths, k4_paths, k1_builds, rec
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3065,7 +3648,7 @@ def main() -> int:
     t0 = time.perf_counter()
     grid_ocps = [hermite_simpson_unc(N=20)[0], move_blocking(N=50)[0]]
     shapes = sorted({(ocp.nz, ocp.nc)} | {(p[0].nz, p[0].nc) for p in problems.values()}
-                    | {(o.nz, o.nc) for o in grid_ocps})
+                    | {(o.nz, o.nc) for o in grid_ocps} | set(ZOO_K1_BUILDS))
     libs = build.build_all(
         [ak.build_spec(nz, nc) for nz, nc in shapes]
         + [bk.build_spec(ocp.nz), bk.build_spec(ocp.nc)], verbose=True)
@@ -3088,6 +3671,7 @@ def main() -> int:
             r["nz2"] = nz2[r["name"]]
     nz6 = phase_kernels_nz6(KERNEL_REPS)
     records[0]["shapes"]["hermite_simpson_unc"] = nz6
+    k1_builds = {(6, 4): nz6, **phase_kernels_nz5(KERNEL_REPS)}
     stamp("kernels")
     if opts.skip_main:
         log(json.dumps({"kernels": records}))
@@ -3128,17 +3712,20 @@ def main() -> int:
     bcr_rec = phase_bcr(*sqp_scan)
     del sqp_scan
     stamp("bcr")
+    # ---- the config loader and the master CLI ----
+    master_k1, master_k4, master_builds, master_rec = phase_master()
+    stamp("master")
     # each count from its own path's run; K1 and K4 carry one count per path
     k1_paths = {"sqp_config1": launches["boxqp_solve"], **nl_launches, "closed_loop": cl_k1,
                 "nonuniform_open_loop": nu_ol_k1, "nonuniform_closed_loop": nu_cl_k1,
-                **grid_launches, "hs_closed_loop": hs_cl_k1, "dual_mode_kalman": dm_k1}
+                **grid_launches, "hs_closed_loop": hs_cl_k1, "dual_mode_kalman": dm_k1,
+                **master_k1}
     k4_paths = {"lm_config1": lm_launches["btridiag_factor_solve_inplace"], "closed_loop_lm": cl_k4,
-                **ip_launches}
+                **ip_launches, **master_k4}
     k3_paths = {"lm_config1_inplace_false": lm_launches["btridiag_factor_solve"], **ip_k3}
     launches = {**launches, **lm_launches, "boxqp_solve": sum(k1_paths.values()),
                 "btridiag_factor_solve_inplace": sum(k4_paths.values()),
                 "btridiag_factor_solve": sum(k3_paths.values())}
-    records[0]["launches_by_path"] = k1_paths
     for r in records:
         if r["name"] == "btridiag_factor_solve_inplace":
             r["launches_by_path"] = k4_paths
@@ -3148,12 +3735,29 @@ def main() -> int:
             r["held_on_paths"] = {path: errs[r["name"]] for path, errs in ip_held.items()}
     for r in records:
         r["launches"] = launches[r["name"]]
-        if r["on_main_path"] and r["launches"] <= 0:
-            raise AssertionError(f"kernel {r['name']} was not launched by its main path")
     if min(k1_paths.values()) <= 0:
         raise AssertionError(f"boxqp_solve was not launched by every path: {k1_paths}")
-    # K1's (6, 4) specialisation: launched by the uncompressed grid's path only
-    records.insert(1, nz6_kernel_record(nz6, k1_paths["hs_unc_config6"]))
+    # K1's other builds, each with its own entry and the launches at that
+    # build, by the wrapper's per-build counts of the paths that reach them:
+    # (6, 4) the uncompressed grid and the zoo's cart-pole, (5, 2) and (5, 3)
+    # the zoo; the (4, 2) / (4, 3) entry keeps the rest of the total
+    builds_by_path = {p: r["boxqp_solve_launches_by_build"] for p, r in grid_rec.items()}
+    builds_by_path.update(master_builds)
+    own = {f"{nz}x{nc}" for nz, nc in k1_builds}
+    records[0]["launches_all_builds"] = launches["boxqp_solve"]
+    records[0]["launches_by_path"] = {
+        p: n - sum(m for b, m in builds_by_path.get(p, {}).items() if b in own)
+        for p, n in k1_paths.items()}
+    records[0]["launches"] = sum(records[0]["launches_by_path"].values())
+    for i, ((nz, nc), rec) in enumerate(k1_builds.items()):
+        by_path = {p: b[f"{nz}x{nc}"] for p, b in builds_by_path.items() if b.get(f"{nz}x{nc}")}
+        records.insert(1 + i, k1_build_record(rec, sum(by_path.values())))
+        records[1 + i]["launches_by_path"] = by_path
+    if sum(r["launches"] for r in records[:1 + len(k1_builds)]) != launches["boxqp_solve"]:
+        raise AssertionError("K1's launches by build do not sum to its total")
+    for r in records:
+        if r["on_main_path"] and r["launches"] <= 0:
+            raise AssertionError(f"kernel {r['name']} was not launched by its main path")
 
     if opts.profile:
         from control_box_rst_tpu_torch.parallel import (
@@ -3226,6 +3830,7 @@ def main() -> int:
     log(json.dumps({"hs_closed_loop": hs_cl_rec}))
     log(json.dumps({"dual_mode": dm_rec}))
     log(json.dumps({"bcr": bcr_rec}))
+    log(json.dumps({"master": master_rec}))
     # last: the config-4 batch by the plain backend (see its docstring)
     nu_cl_rec["plain"] = phase_nonuniform_vs_plain(*nu_cl)
     stamp("nonuniform_vs_plain")

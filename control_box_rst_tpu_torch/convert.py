@@ -7,8 +7,9 @@ handed to the port — is a dict of numpy arrays and static fields (the form
 
 ``ocp_from_numpy(spec)`` keys (arrays are numpy, anything array-like works):
 
-  static:  N, nx, nu, system ("serial_integrators" with time_constant |
-           "van_der_pol" with a), grid_kind ("fd" | "ms"),
+  static:  N, nx, nu, system (any registered system name, with its
+           parameters under their field names: see ``system_from_numpy``),
+           grid_kind ("fd" | "ms"),
            fd_scheme ("forward" | "backward" | "midpoint" | "crank_nicolson"
            | "hermite_simpson" | "hermite_simpson_lc" |
            "hermite_simpson_unc"), integrator ("euler", "rk2" … "rk7"),
@@ -68,10 +69,8 @@ from control_box_rst_tpu_torch.ocp import adaptation as _adaptation
 from control_box_rst_tpu_torch.ocp import constraints as _constraints
 from control_box_rst_tpu_torch.ocp import costs as _costs
 from control_box_rst_tpu_torch.ocp import preprocessor as _preprocessor
-from control_box_rst_tpu_torch.models.benchmark import (
-    SerialIntegratorSystem,
-    VanDerPolOscillator,
-)
+from control_box_rst_tpu_torch.core.factory import Factory
+from control_box_rst_tpu_torch.models.benchmark import LinearStateSpaceModel
 from control_box_rst_tpu_torch.ocp.costs import (
     CompositeCost,
     MinimumTime,
@@ -98,18 +97,35 @@ def _tensor(a, dtype, device) -> Optional[torch.Tensor]:
         np.array(a), device=resolve_device(device)).to(resolve_dtype(dtype))
 
 
+def system_from_numpy(spec: Mapping[str, Any], dtype=None, device=None):
+    """One of the twelve registered systems: ``system`` names it (default
+    "serial_integrators"), ``nx``/``nu`` its dims, and any of its parameter
+    fields (``time_constant``, ``a``, ``damping``, ``spring_alpha``,
+    ``spring_beta``, ``m``, ``l``, ``g``, ``rho``, ``omega0``, ``mc``,
+    ``mp``, ``mu``, ``dt``) their values; fields left out keep their
+    defaults. Scalars stay numbers; "linear_state_space" takes ``A`` and
+    ``B`` (rounded to float32 as the reference's ``from_matrices`` rounds
+    them, then cast to ``dtype`` on ``device``)."""
+    import control_box_rst_tpu_torch.models.benchmark  # noqa: F401 (registers)
+
+    name = spec.get("system", "serial_integrators")
+    if name == "linear_state_space":
+        sys_ = LinearStateSpaceModel.from_matrices(spec["A"], spec["B"])
+        return sys_.replace(A=_tensor(sys_.A, dtype, device), B=_tensor(sys_.B, dtype, device))
+    cls = Factory.get("system", name)
+    params = {}
+    for f in dataclasses.fields(cls):
+        if f.name in ("nx", "nu", "continuous_time") or spec.get(f.name) is None:
+            continue
+        a = np.asarray(spec[f.name])
+        params[f.name] = float(a) if a.ndim == 0 else _tensor(a, dtype, device)
+    return cls(nx=int(spec["nx"]), nu=int(spec["nu"]), **params)
+
+
 def ocp_from_numpy(spec: Mapping[str, Any], dtype=None,
                    device=None) -> TranscribedOCP:
     t = lambda key: _tensor(spec.get(key), dtype, device)
-    system_name = spec.get("system", "serial_integrators")
-    nx, nu = int(spec["nx"]), int(spec["nu"])
-    if system_name == "serial_integrators":
-        system = SerialIntegratorSystem(
-            nx=nx, nu=nu, time_constant=float(spec.get("time_constant", 1.0)))
-    elif system_name == "van_der_pol":
-        system = VanDerPolOscillator(nx=nx, nu=nu, a=float(spec.get("a", 1.0)))
-    else:
-        raise NotImplementedError(f"system {system_name!r} is not ported yet")
+    system = system_from_numpy(spec, dtype, device)
     grid = Grid(
         N=int(spec["N"]), kind=spec.get("grid_kind", "fd"),
         fd_scheme=spec.get("fd_scheme", "crank_nicolson"),

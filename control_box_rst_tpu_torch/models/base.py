@@ -55,3 +55,18 @@ class FunctionalDynamics(SystemDynamics):
 
     def __call__(self, x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         return self.fn(x, u)
+
+
+def check_dimensions(system: SystemDynamics) -> None:
+    """Sanity-check that the model maps (nx,), (nu,) -> (nx,): one
+    evaluation at zeros, in the dtype and on the device of the model's first
+    tensor field (float64 on the host when it holds none)."""
+    tensors = [v for v in vars(system).values() if isinstance(v, torch.Tensor)]
+    kw = (dict(dtype=tensors[0].dtype, device=tensors[0].device) if tensors
+          else dict(dtype=torch.float64, device="cpu"))
+    f = system(torch.zeros((system.nx,), **kw), torch.zeros((system.nu,), **kw))
+    if f.shape != (system.nx,):
+        raise ValueError(
+            f"{type(system).__name__}: dynamics output shape {tuple(f.shape)} "
+            f"!= (nx,) = ({system.nx},)"
+        )

@@ -133,7 +133,7 @@ class TranscribedOCP:
         if g.kind not in ("fd", "ms"):
             raise ValueError(f"unknown grid kind {g.kind!r}")
         if self.system.continuous_time:
-            # raise for unknown schemes and unported integrators
+            # raise for unknown schemes and integrators
             if g.kind == "fd":
                 if g.fd_scheme not in _OWN_SCHEMES:
                     get_fd_collocation(g.fd_scheme)

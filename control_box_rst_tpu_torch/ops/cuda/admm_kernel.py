@@ -25,7 +25,9 @@ Dispatch rule of both wrappers: a CPU tensor takes the plain version
 kernel or raises — there is no fallback when the build or the launch fails,
 and the route is chosen from the shapes, never from a failure.
 ``LAUNCHES`` counts kernel launches per wrapper, and nothing else;
-``LAUNCH_INFO`` says what the last launch of each wrapper chose.
+``LAUNCHES_BY_SHAPE`` counts the same launches by (wrapper, nz, nc), one
+count per build; ``LAUNCH_INFO`` says what the last launch of each wrapper
+chose.
 
 Per-lane QP (δ = step on the stage variables, Kst = N+1 stages):
 
@@ -45,7 +47,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -68,6 +70,8 @@ from control_box_rst_tpu_torch.ops.smallmat import mm_small_tn, mv_small, mv_sma
 # kernel launches per wrapper (incremented where a kernel is launched, and
 # nowhere else)
 LAUNCHES: Dict[str, int] = {"boxqp_solve": 0, "admm_round": 0}
+# the same launches by (wrapper, nz, nc): one count per build
+LAUNCHES_BY_SHAPE: Dict[Tuple[str, int, int], int] = {}
 
 SOURCE = build.CSRC / "admm_kernel.cu"
 
@@ -81,6 +85,13 @@ def build_spec(nz: int, nc: int) -> build.Spec:
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCHES_BY_SHAPE.clear()
+
+
+def _count_launch(name: str, nz: int, nc: int) -> None:
+    LAUNCHES[name] += 1
+    key = (name, nz, nc)
+    LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
 
 
 # --------------------------------------------------------------------------
@@ -481,7 +492,7 @@ def _launch_smem(lib, name, args, dims, scal, stream):
     info = (ctypes.c_int * 6)()
     launch = lib.boxqp_solve_smem_launch if full else lib.admm_round_smem_launch
     err = launch(ptr_array(t + outs), B, Kst, int(shared), *scal, info, stream)
-    LAUNCHES[name] += 1
+    _count_launch(name, nz, nc)
     if err != 0:
         raise RuntimeError(f"{name}: shared-memory kernel launch failed: CUDA error {err}")
     LAUNCH_INFO[name] = dict(
@@ -511,7 +522,7 @@ def _launch_thread(lib, name, args, dims, scal, stream):
         extra += [xtot, it]
     launch = lib.boxqp_solve_launch if full else lib.admm_round_launch
     err = launch(ptr_array(t + extra), B, Kst, lane_tile(B), int(shared), *scal, stream)
-    LAUNCHES[name] += 1
+    _count_launch(name, nz, nc)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed: CUDA error {err}")
     LAUNCH_INFO[name] = dict(route="thread", lane_tile=lane_tile(B), shared_hjk=bool(shared))

@@ -10,9 +10,11 @@ Operands broadcast over leading dims: x [..., nx], u [..., nu], dt [...] (or a
 Python number), so one call steps every stage of every lane. The substep loop
 (a ``lax.scan`` there) is a Python loop here.
 
-Ported: the fixed-step explicit family (Euler, RK2 … RK7) and
-``make_integrator``. The adaptive-step and multi-stage integrators of the
-reference are on no ported path yet and are refused by name.
+The fixed-step explicit family (Euler, RK2 … RK7) is made by name
+(``make_integrator``, and registered in the factory under the same names);
+``AdaptiveStepIntegrator`` (Dormand-Prince 5(4) on a fixed budget of
+substeps, each lane accepting or rejecting its own), ``MultiStageFixedStep``
+and ``MultiStageScaled`` are constructed directly, as in the reference.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from control_box_rst_tpu_torch.core.factory import register
 from control_box_rst_tpu_torch.utils.tree import plain_dataclass
 
 DynamicsFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -71,6 +74,26 @@ _RK5 = _tableau(
     ],
     [4 / 36, 0, 0, 0, (16 + _S6) / 36, (16 - _S6) / 36],
     [0, 4 / 11, 2 / 5, 1, 0.5, 0.5],
+)
+
+# Dormand-Prince 5(4): the 5th-order weights, and the embedded 4th-order
+# weights of the error estimate (the adaptive integrator)
+_DOPRI = _tableau(
+    [
+        [0, 0, 0, 0, 0, 0, 0],
+        [1 / 5, 0, 0, 0, 0, 0, 0],
+        [3 / 40, 9 / 40, 0, 0, 0, 0, 0],
+        [44 / 45, -56 / 15, 32 / 9, 0, 0, 0, 0],
+        [19372 / 6561, -25360 / 2187, 64448 / 6561, -212 / 729, 0, 0, 0],
+        [9017 / 3168, -355 / 33, 46732 / 5247, 49 / 176, -5103 / 18656, 0, 0],
+        [35 / 384, 0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84, 0],
+    ],
+    [35 / 384, 0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84, 0],
+    [0, 1 / 5, 3 / 10, 4 / 5, 8 / 9, 1, 1],
+)
+_DOPRI_B4 = np.array(
+    [5179 / 57600, 0, 7571 / 16695, 393 / 640, -92097 / 339200, 187 / 2100, 1 / 40],
+    dtype=np.float64,
 )
 
 # Butcher's classical 7-stage 6th-order method (the JAX package ships this
@@ -189,17 +212,101 @@ _TABLEAUS = {
 
 _ORDERS = {"euler": 1, "rk2": 2, "rk3": 3, "rk4": 4, "rk5": 5, "rk6": 6, "rk7": 7}
 
-# integrators of the JAX package that a later slice of the port brings over
-_NOT_YET_PORTED = ("adaptive_step", "multi_stage_fixed_step", "multi_stage_scaled")
-
-
 def make_integrator(name: str = "rk4", num_substeps: int = 1) -> ExplicitIntegrator:
     """Factory: euler | rk2..rk7."""
-    if name in _NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"integrator {name!r} is not ported yet (periphery slice F); "
-            f"have {sorted(_TABLEAUS)}"
-        )
     if name not in _TABLEAUS:
         raise KeyError(f"unknown integrator {name!r}; have {sorted(_TABLEAUS)}")
     return ExplicitIntegrator(order=_ORDERS[name], num_substeps=num_substeps, name=name)
+
+
+for _n in _TABLEAUS:
+    register("integrator", _n)(
+        lambda name=_n, num_substeps=1: make_integrator(name, num_substeps)
+    )
+
+
+@plain_dataclass
+class AdaptiveStepIntegrator:
+    """Embedded Dormand-Prince 5(4) with per-substep step-size control.
+
+    A fixed budget of ``max_substeps`` DOPRI steps: each proposes h, is
+    accepted where the embedded error estimate (the max over the state's
+    components) is within ``abs_tol``, and rescales h by 0.9·(tol/err)^(1/5)
+    clipped to [0.2, 5]. Every lane keeps its own (t, h) and accepts or
+    rejects on its own; a lane whose accumulated time has reached dt stays
+    where it is. The budget's Python loop is the reference's ``lax.scan``."""
+
+    abs_tol: float = 1e-6
+    max_substeps: int = 32
+
+    def _dopri_pair(self, f: DynamicsFn, xk, u, h):
+        A, b, _ = _DOPRI
+        ks = []
+        for i in range(7):
+            xi = xk
+            for j in range(i):
+                if A[i][j] != 0.0:
+                    xi = xi + h * float(A[i][j]) * ks[j]
+            ks.append(f(xi, u))
+        x5 = xk
+        x4 = xk
+        for i in range(7):
+            if b[i] != 0.0:
+                x5 = x5 + h * float(b[i]) * ks[i]
+            if _DOPRI_B4[i] != 0.0:
+                x4 = x4 + h * float(_DOPRI_B4[i]) * ks[i]
+        return x5, x4
+
+    def solve_ivp_accepted(self, f: DynamicsFn, x: torch.Tensor, u: torch.Tensor, dt):
+        """(x(dt) [..., nx], accepted [..., max_substeps] bool): the state
+        after the budget and which of its substeps each lane accepted."""
+        dt = _dt_column(dt, x)[..., 0]
+        lead = torch.broadcast_shapes(x.shape[:-1], dt.shape)
+        dt = dt.expand(lead)
+        x = x.expand(lead + x.shape[-1:])
+        t = torch.zeros_like(dt)
+        h = dt
+        accepted = []
+        for _ in range(self.max_substeps):
+            remaining = dt - t
+            h_eff = torch.minimum(h, remaining)
+            x5, x4 = self._dopri_pair(f, x, u, h_eff[..., None])
+            err = (x5 - x4).abs().amax(dim=-1)
+            accept = err <= self.abs_tol
+            done = remaining <= 1e-12
+            keep = done | ~accept
+            x = torch.where(keep[..., None], x, x5)
+            t = torch.where(keep, t, t + h_eff)
+            scale = 0.9 * (self.abs_tol / (err + 1e-30)) ** 0.2
+            h = torch.where(done, h, h_eff * torch.clamp(scale, 0.2, 5.0))
+            h = torch.maximum(h, dt * 1e-6)
+            accepted.append(~keep)
+        return x, torch.stack(accepted, dim=-1)
+
+    def solve_ivp(self, f: DynamicsFn, x: torch.Tensor, u: torch.Tensor, dt) -> torch.Tensor:
+        return self.solve_ivp_accepted(f, x, u, dt)[0]
+
+
+@plain_dataclass
+class MultiStageFixedStep:
+    """A fixed substep count: ``inner`` applied n times with h = dt/n."""
+
+    inner: ExplicitIntegrator = None
+    n: int = 10
+
+    def solve_ivp(self, f, x, u, dt):
+        return self.inner.replace(num_substeps=self.n).solve_ivp(f, x, u, dt)
+
+
+@plain_dataclass
+class MultiStageScaled:
+    """The substep count scaled by dt, n = ceil(dt / dt_ref), statically
+    bounded: as in the reference (where dt is traced), the count is fixed to
+    ``n_max`` and the step is dt/n_max."""
+
+    inner: ExplicitIntegrator = None
+    dt_ref: float = 0.1
+    n_max: int = 10
+
+    def solve_ivp(self, f, x, u, dt):
+        return self.inner.replace(num_substeps=self.n_max).solve_ivp(f, x, u, dt)

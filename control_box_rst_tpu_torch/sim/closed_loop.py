@@ -124,7 +124,8 @@ def run_closed_loop(
     res = ClosedLoopResult(
         ts=ts.expand(B, T_steps), x_true=stack(xs), y=stack(ys),
         x_observed=stack(xhats), u=stack(us), ok=stack(oks),
-        info={key: stack([i[key] for i in infos]) for key in (infos[0] if infos else {})},
+        # keys sorted, as the reference's lax.scan returns a dict
+        info={key: stack([i[key] for i in infos]) for key in sorted(infos[0] if infos else {})},
     )
     if unbatched:
         res = ClosedLoopResult(

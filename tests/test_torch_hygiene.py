@@ -75,6 +75,9 @@ def test_every_listed_module_exists():
         "ops/btridiag_cr.py", "ops/matrix_eq.py", "control/classic.py",
         "control/dual_mode.py", "sim/observer.py",
         "parallel/sharded_solve.py", "entry.py", "convert.py",
+        "core/factory.py", "core/signals.py", "core/export.py", "core/time_series.py",
+        "core/reference.py", "core/config.py", "sim/environment.py", "master.py",
+        "models/outputs.py", "models/filters.py", "ops/integrators.py",
     ):
         assert (PKG / rel).is_file(), rel
 
@@ -126,11 +129,22 @@ def test_entry_points_refuse_the_cpu_unless_asked():
         make_batched_solver(ocp, cfg, device="cpu", mesh=object())
 
 
+# a one-step closed loop of the config loader (the CPU run takes ~1 s)
+_LOADER_CONFIG = {
+    "experiment": {"task": "closed_loop", "T_steps": 1, "dt": 0.1},
+    "system": {"type": "serial_integrators", "params": {"nx": 2, "nu": 1}},
+    "grid": {"type": "fd", "N": 4}, "bounds": {"u_min": -1.0, "u_max": 1.0},
+    "x0": [1.0, 0.0], "solver": {"max_iter": 2},
+}
+
+
 def test_constructors_refuse_the_cpu_unless_asked():
     """``flagship``, ``transcribe``, ``Bounds.unbounded``, every ``convert``
-    function and ``zero_warm_start`` create tensors, so ``device=None`` means
-    the card for them too."""
+    function, ``zero_warm_start`` and the config loader's builders and
+    ``run_experiment`` create tensors, so ``device=None`` means the card for
+    them too."""
     from control_box_rst_tpu_torch import convert
+    from control_box_rst_tpu_torch.core import config
     from control_box_rst_tpu_torch.entry import flagship
     from control_box_rst_tpu_torch.models import DoubleIntegratorContinuous
     from control_box_rst_tpu_torch.ocp import (
@@ -157,6 +171,11 @@ def test_constructors_refuse_the_cpu_unless_asked():
             dict(delta=z, y_dyn=z, y_gen=z, y_box=z), **kw),
         lambda **kw: convert.sqp_warm_start_from_numpy(
             dict(W=z, y_dyn=z, y_gen=z, y_box=z), **kw),
+        lambda **kw: convert.system_from_numpy(
+            dict(system="linear_state_space", nx=2, nu=1, A=np.eye(2), B=np.ones((2, 1))), **kw),
+        lambda **kw: config.build_ocp(_LOADER_CONFIG, **kw),
+        lambda **kw: config.build_controller(_LOADER_CONFIG, **kw),
+        lambda **kw: config.run_experiment(_LOADER_CONFIG, **kw),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

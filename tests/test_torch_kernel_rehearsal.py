@@ -26,7 +26,11 @@ uncompressed Hermite-Simpson grid: the midpoint states in the stage vector,
 their interpolation rows among the interval rows). The (6, 4) build runs
 config 6's uncompressed first-iteration QPs (Kst = 21, Hd/J/K per lane)
 against the plain version, and move blocking's one-shot runs through the
-(4, 3) build on one shared copy of Hd/J/K.
+(4, 3) build on one shared copy of Hd/J/K. The (5, 2) and (5, 3) builds
+serve the config loader's model zoo (two controls, or three states: the
+parallel integrators and the rocket) and run random QPs against the plain
+version; the loader's fused path (config 1's YAML) runs through the (4, 2)
+build in ``test_torch_kernel_rehearsal_loader.py``.
 
 The block-tridiagonal source is built for nz = 4 (LM's Gauss-Newton
 systems), 3 and 2 (the interior-point solver's Schur systems, nc × nc blocks
@@ -51,7 +55,7 @@ from torch_kernel_util import misaligned
 
 torch.set_num_threads(1)
 NZ, NC = 4, 2
-SHAPES = ((4, 2), (4, 3), (6, 4))  # (nz, nc) of the box-QP library builds
+SHAPES = ((4, 2), (4, 3), (6, 4), (5, 2), (5, 3))  # (nz, nc) of the box-QP library builds
 BASE = (1e-6, 1.6, 1e3)  # sigma, alpha, rho_eq_scale
 
 
@@ -287,6 +291,109 @@ def test_boxqp_solve_nz6_build_on_the_host(libs):
             np.testing.assert_allclose(smem[0].numpy(), plain[0].numpy(), rtol=0, atol=1e-4)
 
 
+@pytest.mark.parametrize("nc", [2, 3])
+def test_boxqp_solve_nz5_builds_on_the_host(libs, nc):
+    """The (5, nc) builds on random QPs (Kst = 21, per-lane Hd/J/K, 9 lanes
+    outnumbering the teams): the shared-memory and the one-thread-per-lane
+    kernels give the same bits and the plain version's rounds, x within
+    1e-4 of it."""
+    admm = libs[0][5, nc]
+    B, Kst = 9, 21
+    args = _qps(B, Kst, shared=False, seed=5 + nc, NC=nc, NZ=5)
+    scal = (6, 4, 2e-4, *BASE, 1e-4, 1e4, 0.0, 0.0)
+    dims = (B, Kst, 5, nc)
+    max_smem = ctypes.c_int.in_dll(admm, "shim_max_smem")
+    max_smem.value = 2 * ak.LANES_PER_WARP * ak.state_bytes_per_lane(Kst, 5, nc, False)
+    try:
+        smem = ak._launch_smem(admm, "boxqp_solve", args, dims, scal, 0)
+        info = dict(ak.LAUNCH_INFO["boxqp_solve"])
+    finally:
+        max_smem.value = ak.MAX_DYNAMIC_SMEM_BYTES
+    thread = ak._launch_thread(admm, "boxqp_solve", args, dims, scal, 0)
+    assert info["route"] == "smem" and info["blocks"] * info["warps_per_block"] * ak.LANES_PER_WARP < B
+    for a, b in zip(smem, thread):
+        assert torch.equal(a, b)
+    plain = ak.boxqp_solve_plain(*args, *scal)
+    assert torch.equal(smem[6], plain[6]) and len(set(smem[6].tolist())) > 1
+    np.testing.assert_allclose(smem[0].numpy(), plain[0].numpy(), rtol=0, atol=1e-4)
+
+
+def test_launches_counted_by_build(libs):
+    """Each launch adds one to its wrapper's count and one to the count of
+    its (nz, nc) build, through both routes; a reset clears both."""
+    admm = libs[0]
+    scal = (2, 4, 2e-4, *BASE, 1e-4, 1e4, 0.0, 0.0)
+    ak.reset_launch_counts()
+    try:
+        for nz, nc, route in ((5, 2, "smem"), (5, 3, "thread"), (5, 3, "smem"), (4, 2, "thread")):
+            B, Kst = 3, 6
+            args = _qps(B, Kst, shared=False, seed=nz + nc, NC=nc, NZ=nz)
+            launch = ak._launch_smem if route == "smem" else ak._launch_thread
+            launch(admm[nz, nc], "boxqp_solve", args, (B, Kst, nz, nc), scal, 0)
+        assert ak.LAUNCHES == {"boxqp_solve": 4, "admm_round": 0}
+        assert ak.LAUNCHES_BY_SHAPE == {("boxqp_solve", 5, 2): 1, ("boxqp_solve", 5, 3): 2,
+                                        ("boxqp_solve", 4, 2): 1}
+    finally:
+        ak.reset_launch_counts()
+    assert ak.LAUNCHES_BY_SHAPE == {}
+
+
+@pytest.mark.parametrize("system, shape", [("parallel_integrators", (5, 2)),
+                                           ("free_space_rocket", (5, 3))])
+def test_zoo_first_iteration_qps_through_the_nz5_builds(libs, system, shape):
+    """The master zoo's (5, 2) / (5, 3) systems: their config (the zoo
+    golden's) through the loader, the QPs of one SQP iteration at 256
+    initial states around the config's x0 as the fused backend hands them,
+    through the host build: x, y_d, y_b as close to the float64 plain version
+    as the float32 plain version (2x + 1e-4, the card's gate); rounds held to
+    the float64 plain version's (largest per-lane distance no more than the
+    float32 plain version's + 1, mean no more than twice its + 0.05): the
+    zoo's qp_tol 1e-7 sits at float32's floor."""
+    import json
+    import pathlib
+
+    from control_box_rst_tpu_torch.core import config as tc
+    from control_box_rst_tpu_torch.parallel import make_batched_solver
+
+    gold = np.load(pathlib.Path(__file__).resolve().parent / "golden" / "torch_master_zoo.npz")
+    cfg = json.loads(str(gold[f"{system}/config"]))
+    ctrl, _ = tc.build_controller(cfg, dtype=torch.float32, device="cpu")
+    x0 = np.asarray(cfg["x0"], dtype=np.float32)
+    x0s = x0 + np.random.default_rng(1).uniform(-0.25, 0.25, (256, x0.size)).astype(np.float32)
+    x0s[0] = x0
+    caught, real = [], ak.boxqp_solve
+
+    def catch(*args, **kw):
+        caught.append((args, kw))
+        return real(*args, **kw)
+
+    qp = ctrl.cfg.qp.replace(backend="fused")
+    try:
+        ak.boxqp_solve = catch
+        make_batched_solver(ctrl.ocp, ctrl.cfg.replace(max_iter=1, qp=qp), dt_init=0.1,
+                            device="cpu")(torch.as_tensor(x0s))
+    finally:
+        ak.boxqp_solve = real
+    assert len(caught) == 1
+    args, kw = caught[0]
+    dims = ak._check_args(args)
+    assert dims[2:] == shape
+    keys = ("n_rounds", "iters", "tol", "sigma", "alpha", "rho_eq_scale", "rho_min",
+            "rho_max", "tol_stat", "tol_feas")
+    out_k = ak._launch_smem(libs[0][shape], "boxqp_solve", args, dims,
+                            tuple(kw[k] for k in keys), 0)
+    out_p = ak.boxqp_solve_plain(*args, **kw)
+    out_d = ak.boxqp_solve_plain(*[a.double() for a in args], **kw)
+    for i in (0, 2, 3):
+        e_k = float((out_k[i].double() - out_d[i]).abs().max())
+        e_p = float((out_p[i].double() - out_d[i]).abs().max())
+        assert e_k <= 2.0 * e_p + 1e-4
+    k_d = (out_k[6] - out_d[6]).abs() / kw["iters"]
+    p_d = (out_p[6] - out_d[6]).abs() / kw["iters"]
+    assert float(k_d.max()) <= float(p_d.max()) + 1
+    assert float(k_d.mean()) <= 2 * float(p_d.mean()) + 0.05
+
+
 def test_move_blocking_one_shot_through_the_nc3_build(libs, monkeypatch):
     """Move blocking on config 1 (N = 20, ten blocks of 2): the one-shot
     launches the (4, 3) build once on one shared copy of Hd/J/K (the tie
@@ -497,3 +604,4 @@ def test_ip_and_lm_paths_through_the_host_kernels(libs, monkeypatch):
     assert launches_by_path["ip_controller"] == int(lock_step.sum()) > 0
     assert bool(torch.isfinite(res.u).all()) and float(res.u.abs().max()) <= 1.0 + 1e-6
     assert min(launches_by_path.values()) > 0
+

@@ -236,8 +236,9 @@ def test_unported_structure_is_refused():
     from control_box_rst_tpu_torch.ops.collocation import get_fd_collocation
 
     _, ocp_t = _ocps("config1")
-    # the adaptive integrators are not ported (slice F)
-    with pytest.raises(NotImplementedError):
+    # a grid names its integrator from make_integrator's tableaux; the
+    # adaptive integrator is not one of them, here as in the reference
+    with pytest.raises(KeyError):
         ocp_t.replace(grid=Grid(N=N, kind="ms", integrator="adaptive_step"))
     # the other grids are (a move-blocking sequence must name every interval)
     for grid in (Grid(N=N, fd_scheme="backward"), Grid(N=N, u_blocks=tuple(range(N)))):
