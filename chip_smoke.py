@@ -22,7 +22,10 @@ uncompressed grid, and under MPC), move blocking on config 1, the Kalman /
 dual-mode closed loop of ``examples/config5_kalman_dual_mode.yaml``,
 block cyclic reduction in the plain ADMM, and the port's config loader and
 master CLI on the six example YAMLs, a batched config 1, the loader's IP and
-LM solvers and the twelve systems of the model zoo — after building
+LM solvers and the twelve systems of the model zoo, the gRPC master service
+(config 1's YAML served in this process and by ``master --serve``) and the
+real-time loop (config 1's controller at wall-clock rate against a threaded
+plant, B=1) — after building
 every CUDA kernel of those paths from the sources in this
 checkout and holding each kernel against its plain PyTorch version on the same
 inputs. There is no CPU path: without a CUDA device the script exits non-zero
@@ -228,7 +231,29 @@ Phases
              golden; K1 through its (4, 2), (5, 2), (5, 3) and (6, 4) builds);
              every run's K1 launches by build, from the wrapper's own
              per-build counts, summing to its total
- 15 result   one JSON line with every kernel's record, then the contract line
+ 15 serve    config 1's YAML (70 steps, f32, B=1) served on the card: the
+             port's ``MasterServer`` behind ``grpc.server`` on localhost:0 in
+             this process, the port's ``MasterClient``: ping, set_config,
+             verify_config, available_signals, performTask; gates: the stream
+             holds master/progress 0.0 then 1.0 and every signal of an
+             in-process ``run_experiment`` of the YAML within 1e-6, K1
+             launches == the lock-step SQP iterations > 0; then ``python -m
+             control_box_rst_tpu_torch.master --serve localhost:0 --config
+             <yaml>`` as a subprocess (port from its first line, the same
+             gates but the launches, which another process makes), and
+             ``stop`` (ok() false, then restored); wall, messages, bytes on
+             the wire. The transport (gRPC) is decided before the phase and
+             printed on a line of its own
+ 16 realtime config 1's YAML controller (f32, K1 on the hoisted Hd/J/K)
+             through ``run_realtime_closed_loop`` at dt 0.1 for 3 s against a
+             ``SimulatedPlantThreaded`` of its plant (sim_dt 0.005, on the
+             card), logged by the native ``SignalWriter``; gates: the native
+             runtime built, 30 steps and 30 records, none dropped, |x_T| <
+             |x_0|, |u| <= 1 + 1e-6, K1 launches == the SQP iterations of
+             every controller call > 0; overruns of the loop and of the
+             plant thread, solve mean / p99 beside the closed_loop phase's
+             B=1 step p99, what ``set_realtime_priority`` returned (reported)
+ 17 result   one JSON line with every kernel's record, then the contract line
 
 Output: progress lines (with ``--profile`` a ``{"profile": ...}`` line with
 the device time by kernel and the hand-written kernels launch by launch, a
@@ -244,13 +269,16 @@ a ``{"nonuniform": ...}`` line, an ``{"ip": ...}`` line (``--profile``
 adds ``profile_ip``: one traced config-1 and constrained-DI IP batch, eager
 kernels per IP iteration, and ``profile_grids``: one traced batch of each
 path of phases 10-12), ``{"grids": ...}``, ``{"hs_closed_loop": ...}``,
-``{"dual_mode": ...}``, ``{"bcr": ...}`` and ``{"master": ...}`` lines, the
-nvidia-smi line, a
+``{"dual_mode": ...}``, ``{"bcr": ...}``, ``{"master": ...}``, ``{"serve":
+...}`` and ``{"realtime": ...}`` lines (``--profile`` adds
+``profile_realtime``: 10 steps of the real-time controller at B=1 back to
+back under ``utils.profiling.device_trace``, with its device idle share and
+eager kernels per MPC step), the nvidia-smi line, a
 ``{"kernels": [...]}``
 line (per kernel the contract's keys and, where a kernel was redesigned,
 ``earlier_ms`` / ``vs_earlier``: the kernel it replaced on the same inputs,
 and ``launch``: route, shared memory per lane, resident lanes per SM,
-registers per thread; the box-QP solve kernel adds ``launches_by_path`` and
+registers per thread; the box-QP solve kernel adds ``launches_by_path`` (with ``serve_config1`` and ``realtime_config1``) and
 ``shapes``, its records at the nonlinear paths' shapes, on the closed
 loop's step-5 QPs, at config 4's two horizons and on the uncompressed
 config-6 QPs; ``boxqp_solve[nz6_nc4]``, ``boxqp_solve[nz5_nc2]`` and
@@ -2103,6 +2131,37 @@ def profile_kernels_alone(ocp, cfg, x0s_all):
     return kernels_alone_ms(calls, 3)
 
 
+def profile_record(prof, wall_ms, top: int = 14):
+    """What a finished ``torch.profiler`` run saw over ``wall_ms`` of wall
+    time: device time by kernel name, the hand-written kernels launch by
+    launch (kernel-alone times), and the share of the wall time the device
+    sat idle."""
+    rows = [
+        (e.key, e.device_time_total / 1e3, e.count)
+        for e in prof.key_averages() if e.device_time_total > 0
+        and e.device_type == torch.autograd.DeviceType.CUDA
+    ]
+    rows.sort(key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows)
+    # the hand-written kernels launch by launch, in launch order
+    ours = {}
+    for e in sorted(prof.events(), key=lambda e: e.time_range.start):
+        if e.device_type == torch.autograd.DeviceType.CUDA and any(
+                tag in e.name for tag in ("boxqp_solve", "admm_round", "btridiag_factor_solve")):
+            ours.setdefault(e.name.split("(")[0][:60], []).append(e.device_time_total / 1e3)
+    own = {
+        name: dict(launches=len(t), mean_ms=sum(t) / len(t), min_ms=min(t), max_ms=max(t),
+                   each_ms=t if len(t) <= 4 else None)
+        for name, t in ours.items()}
+    return dict(
+        wall_ms=wall_ms, device_busy_ms=busy_ms,
+        device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
+        n_device_kernels=int(sum(r[2] for r in rows)),
+        own_kernels=own,
+        top=[dict(name=r[0][:60], ms=r[1], calls=r[2]) for r in rows[:top]],
+    )
+
+
 def phase_profile(solvers, x0s_np, top: int = 14):
     """torch.profiler over one batched solve of each main path and one single
     SQP solve: device time by kernel name, the hand-written kernels launch by
@@ -2120,30 +2179,7 @@ def phase_profile(solvers, x0s_np, top: int = 14):
             solver(x)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        rows = [
-            (e.key, e.device_time_total / 1e3, e.count)
-            for e in prof.key_averages() if e.device_time_total > 0
-            and e.device_type == torch.autograd.DeviceType.CUDA
-        ]
-        rows.sort(key=lambda r: -r[1])
-        busy_ms = sum(r[1] for r in rows)
-        # the hand-written kernels launch by launch, in launch order
-        ours = {}
-        for e in sorted(prof.events(), key=lambda e: e.time_range.start):
-            if e.device_type == torch.autograd.DeviceType.CUDA and any(
-                    tag in e.name for tag in ("boxqp_solve", "admm_round", "btridiag_factor_solve")):
-                ours.setdefault(e.name.split("(")[0][:60], []).append(e.device_time_total / 1e3)
-        own = {
-            name: dict(launches=len(t), mean_ms=sum(t) / len(t), min_ms=min(t), max_ms=max(t),
-                       each_ms=t if len(t) <= 4 else None)
-            for name, t in ours.items()}
-        out[label] = dict(
-            wall_ms=wall_ms, device_busy_ms=busy_ms,
-            device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
-            n_device_kernels=int(sum(r[2] for r in rows)),
-            own_kernels=own,
-            top=[dict(name=r[0][:60], ms=r[1], calls=r[2]) for r in rows[:top]],
-        )
+        out[label] = profile_record(prof, wall_ms, top)
     return out
 
 
@@ -3216,13 +3252,13 @@ ZOO_K1_BATCH = 4096  # lanes of those systems' first-iteration QPs in the kernel
 def catch_master_run():
     """Patch what a master run goes through, to read it back: the solves'
     lock-step iterations by kind (sqp, ip, lm; the benchmarks' timed SQP
-    solves included), the SQP statuses, and the results the run records (the ClosedLoopResult of a closed loop, the
+    solves included) and call by call (``iters``), the SQP statuses, and the results the run records (the ClosedLoopResult of a closed loop, the
     ControlOutput of an open loop). Returns (record, restore)."""
     from control_box_rst_tpu_torch import sim
     from control_box_rst_tpu_torch.control import predictive
     from control_box_rst_tpu_torch.sim import benchmarks
 
-    rec = dict(sqp=0, ip=0, lm=0, calls=0, status=[], feas=[], results=[])
+    rec = dict(sqp=0, ip=0, lm=0, calls=0, status=[], feas=[], results=[], iters=[])
     patched = []
 
     def wrap(mod, name, fn):
@@ -3235,6 +3271,7 @@ def catch_master_run():
             def run(*args, **kw):
                 res = real(*args, **kw)
                 rec[kind] += int(res.iterations.max())
+                rec["iters"].append(int(res.iterations.max()))
                 rec["calls"] += 1
                 if kind == "sqp":
                     rec["status"].append(int(res.status.reshape(-1)[0]))
@@ -3602,6 +3639,327 @@ def phase_master():
     return k1_paths, k4_paths, k1_builds, rec
 
 
+# --------------------------------------------------------------------------
+# phases serve and realtime: the gRPC master service and the real-time loop
+# --------------------------------------------------------------------------
+
+SERVE_YAML = ROOT / "examples" / "config1_double_integrator.yaml"
+SERVE_TOL = 1e-6       # streamed values against the in-process run
+SERVE_START_S = 180    # master --serve: seconds to its first line
+RT_SIM_DT = 0.005      # the threaded plant's period
+RT_DURATION_S = 3.0    # the real-time loop: 30 steps at the YAML's dt of 0.1
+RT_PROFILE_STEPS = 10  # --profile: B=1 steps of the real-time controller
+
+
+def serve_transport() -> str:
+    """How the serve phase talks to the master, decided before the phase:
+    gRPC needs both ``grpc`` and ``google.protobuf`` (``comm`` imports
+    both); the run fails here, by name, on a machine that lacks one."""
+    import importlib.util
+
+    missing = [m for m in ("grpc", "google.protobuf") if importlib.util.find_spec(m) is None]
+    if missing:
+        raise AssertionError(f"serve: {missing} not importable here; the gRPC master needs them")
+    import google.protobuf
+    import grpc
+
+    return f"grpc (grpc {grpc.__version__}, protobuf {google.protobuf.__version__})"
+
+
+def _stream(stream):
+    """Drain a performTask stream: (store as ``MasterClient.perform_task``
+    builds it, the master/progress values in order, messages, bytes)."""
+    from control_box_rst_tpu_torch.comm.service import merge_signal, proto_to_signal
+
+    store, progress, n_msgs, n_bytes = {}, [], 0, 0
+    for msg in stream:
+        n_msgs += 1
+        n_bytes += msg.ByteSize()
+        name, sig = proto_to_signal(msg)
+        if name == "master/progress":
+            progress.append(float(msg.values[0]))
+        merge_signal(store, name, sig)
+    return store, progress, n_msgs, n_bytes
+
+
+def _store_distance(label, store, ref):
+    """The streamed store against the recorder of an in-process run: every
+    signal name of the run plus master/progress, the same kinds and shapes;
+    returns the largest distance of values, times and matrices."""
+    names = set(ref.names())
+    if set(store) != names | {"master/progress"}:
+        raise AssertionError(f"{label}: streamed {sorted(store)}, the run has {sorted(names)}")
+    worst = 0.0
+    for name in sorted(names):
+        want, got = ref.get(name), store[name]
+        if got["kind"] != want["kind"]:
+            raise AssertionError(f"{label}: {name} is {got['kind']}, the run's {want['kind']}")
+        pairs = [(got[k], want[k]) for k in ("values", "times") if k in want]
+        pairs += list(zip(got.get("matrices", []), want.get("matrices", [])))
+        for g, w in pairs:
+            g, w = np.asarray(g, dtype=np.float64), np.asarray(w, dtype=np.float64)
+            if g.shape != w.shape:
+                raise AssertionError(f"{label}: {name} has shape {g.shape}, the run's {w.shape}")
+            if g.size:
+                worst = max(worst, float(np.abs(g - w).max()))
+    return worst
+
+
+def _serve_cli(ref):
+    """``python -m control_box_rst_tpu_torch.master --serve localhost:0
+    --config <config 1's YAML>`` as a subprocess on the card: its port from
+    its first line, ping, performTask held to the in-process run; the
+    process is terminated whatever happens."""
+    import re
+    import select
+    import tempfile
+
+    from control_box_rst_tpu_torch.comm import MasterClient
+
+    with tempfile.TemporaryFile("w+", dir=ROOT / "build") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "control_box_rst_tpu_torch.master", "--serve", "localhost:0",
+             "--config", str(SERVE_YAML)],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=err, text=True)
+        try:
+            t0 = time.perf_counter()
+            ready, _, _ = select.select([proc.stdout], [], [], SERVE_START_S)
+            line = proc.stdout.readline() if ready else ""
+            m = re.fullmatch(r"corbo_tpu master listening on localhost:(\d+)\n", line)
+            if not m:
+                err.seek(0)
+                raise AssertionError(f"master --serve: first line {line!r}, rc {proc.poll()}, "
+                                     f"stderr {err.read()[-2000:]}")
+            start_s = time.perf_counter() - t0
+            client = MasterClient(f"localhost:{m.group(1)}")
+            try:
+                if not client.ping():
+                    raise AssertionError("master --serve: no answer to ping")
+                t0 = time.perf_counter()
+                store, progress, n_msgs, n_bytes = _stream(client.perform_task_stream())
+                wall = time.perf_counter() - t0
+            finally:
+                client.close()
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=20)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=20)
+    dist = _store_distance("master --serve", store, ref)
+    if progress != [0.0, 1.0] or not dist <= SERVE_TOL:
+        raise AssertionError(f"master --serve: progress {progress}, distance {dist:.3e}")
+    return dict(start_s=start_s, perform_task_wall_s=wall, messages=n_msgs, wire_bytes=n_bytes,
+                max_abs_dist_vs_run=dist,
+                boxqp_solve_launches="not countable: another process")
+
+
+def phase_serve(transport: str):
+    """Config 1's YAML (70 steps, float32, B=1) served on the card: the
+    port's ``MasterServer`` behind ``grpc.server`` on localhost:0 in this
+    process and the port's ``MasterClient``: ping, set_config,
+    verify_config, available_signals (the closed loop's names),
+    performTask. Gates: the stream holds master/progress 0.0 then 1.0 and
+    every signal of an in-process ``run_experiment(load_config(yaml),
+    device="cuda")`` within SERVE_TOL; K1 launches during performTask ==
+    the lock-step SQP iterations > 0. Then ``master --serve`` as a
+    subprocess by the same gates (launches excepted), and ``stop``: ok()
+    false, restored. Returns (K1 launches, K1 launches by build, record)."""
+    from concurrent import futures
+
+    import grpc
+    import yaml
+
+    from control_box_rst_tpu_torch.comm import MasterClient, MasterServer
+    from control_box_rst_tpu_torch.core import config as tc
+    from control_box_rst_tpu_torch.core.console import ok, set_ok
+    from control_box_rst_tpu_torch.ops.cuda import admm_kernel as ak
+
+    ref = tc.run_experiment(tc.load_config(SERVE_YAML), device="cuda")
+    torch.cuda.synchronize()
+    server = grpc.server(futures.ThreadPoolExecutor(max_workers=4))
+    master = MasterServer()  # device None: the card
+    server.add_generic_rpc_handlers((master.grpc_handler(),))
+    port = server.add_insecure_port("localhost:0")
+    server.start()
+    client = MasterClient(f"localhost:{port}")
+    try:
+        if not client.ping():
+            raise AssertionError("serve: no answer to ping")
+        st = client.set_config(yaml.safe_load(SERVE_YAML.read_text()))
+        verified, text = client.verify_config()
+        if not st.ok or not verified:
+            raise AssertionError(f"serve: set_config {st.text!r}, verify_config {text!r}")
+        avail = client.available_signals()
+        closed = ("plant_output", "observed_states", "applied_controls", "plant_states")
+        if not set(closed) <= set(avail):
+            raise AssertionError(f"serve: available signals {sorted(avail)}")
+        calls, restore = catch_master_run()
+        ak.reset_launch_counts()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            store, progress, n_msgs, n_bytes = _stream(client.perform_task_stream())
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            k1 = ak.LAUNCHES["boxqp_solve"]
+            by_build = k1_launches_by_build(ak, "serve")
+        finally:
+            restore()
+        dist = _store_distance("serve", store, ref)
+        res = calls["results"]
+        if progress != [0.0, 1.0] or not dist <= SERVE_TOL or len(res) != 1:
+            raise AssertionError(f"serve: progress {progress}, distance {dist:.3e}, "
+                                 f"{len(res)} recorded runs")
+        if int(res[0].info["sqp_iters"].sum()) != calls["sqp"] or k1 <= 0 or k1 != calls["sqp"]:
+            raise AssertionError(f"serve: {k1} K1 launches, lock-step SQP iterations "
+                                 f"{calls['sqp']}, recorded {int(res[0].info['sqp_iters'].sum())}")
+        cli = _serve_cli(ref)
+        try:
+            client.stop()
+            stopped = not ok()
+        finally:
+            set_ok(True)
+        if not stopped:
+            raise AssertionError("serve: stop left console.ok() true")
+    finally:
+        client.close()
+        server.stop(grace=None)
+    steps = int(store["applied_controls"]["values"].shape[0])
+    rec = dict(transport=transport, steps=steps, perform_task_wall_s=wall,
+               mpc_steps_per_s=steps / wall, messages=n_msgs, wire_bytes=n_bytes, signals=len(store),
+               max_abs_dist_vs_run=dist, progress=progress, boxqp_solve_launches=k1,
+               lock_step_sqp_iterations=calls["sqp"], boxqp_solve_launches_by_build=by_build,
+               stop_cleared_ok=stopped, cli=cli)
+    log(f"serve: {json.dumps(rec)}")
+    return k1, by_build, rec
+
+
+def phase_realtime(b1_step_p99_ms):
+    """Config 1's YAML controller (``build_controller`` on the card, float32:
+    SQP, K1 on the hoisted Hd/J/K) driving a ``SimulatedPlantThreaded`` of
+    the YAML's plant (sim_dt RT_SIM_DT, on the card) through
+    ``run_realtime_closed_loop`` at the YAML's dt for RT_DURATION_S, logged by
+    the native ``SignalWriter``; ``PhaseTimer`` around a first controller
+    call and the loop. Gates: the native runtime built; 30 steps, 30
+    records, none dropped; the final |x| below the initial; every |u| <= 1 +
+    1e-6; K1 launches == the SQP iterations of every controller call (the
+    loop's warm-up call and its steps) > 0. Overruns are wall-clock and
+    host-dependent: reported. Returns (K1 launches, by build, record,
+    controller)."""
+    import tempfile
+    import threading
+
+    from control_box_rst_tpu_torch import native
+    from control_box_rst_tpu_torch.core import config as tc
+    from control_box_rst_tpu_torch.ops.cuda import admm_kernel as ak
+    from control_box_rst_tpu_torch.sim import SimulatedPlantThreaded
+    from control_box_rst_tpu_torch.sim.realtime import run_realtime_closed_loop
+    from control_box_rst_tpu_torch.utils.profiling import PhaseTimer
+
+    if not native.native_available():
+        raise AssertionError("realtime: the native runtime did not build (g++)")
+    cfg = tc.load_config(SERVE_YAML)
+    dt = float(cfg["experiment"]["dt"])
+    ctrl, system = tc.build_controller(cfg)  # the card, float32
+    if ctrl.sqp_cfg.qp.backend != "fused" or ctrl.hoisted.Jm is None:
+        raise AssertionError("realtime: expected the fused backend on one hoisted J/K/Hd")
+    plant = tc.build_plant(cfg, system)
+    x0 = np.asarray(cfg["x0"], dtype=np.float64)
+    # from a helper thread: the answer, without changing this thread's policy
+    prio = []
+    t = threading.Thread(target=lambda: prio.append(native.set_realtime_priority(10)))
+    t.start()
+    t.join()
+    timer = PhaseTimer()
+    x = torch.as_tensor(x0, dtype=torch.float32, device="cuda")[None]
+    with timer.phase("first_controller_call"):
+        ctrl.step(ctrl.init_carry(x), x, 0.0, dt)[1].u.cpu()
+    th = SimulatedPlantThreaded(plant, x0, sim_dt=RT_SIM_DT)  # the card, float32
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        log_path = str(pathlib.Path(tmp) / "realtime_config1.bin")
+        calls, restore = catch_master_run()
+        ak.reset_launch_counts()
+        try:
+            with th:
+                with timer.phase("loop"):
+                    stats = run_realtime_closed_loop(ctrl, th.read_output, th.write_control, x0,
+                                                     dt, RT_DURATION_S, log_path=log_path)
+                x_final = th.state()
+            torch.cuda.synchronize()
+            k1 = ak.LAUNCHES["boxqp_solve"]
+            by_build = k1_launches_by_build(ak, "realtime")
+        finally:
+            restore()
+        ts, vals = native.read_signal_log(log_path)
+    u = vals[:, 2:]
+    steps_iters = calls["iters"][1:]  # the first call is the loop's warm-up
+    rec = dict(
+        native_available=True, steps=stats["steps"], dt=dt, sim_dt=RT_SIM_DT, records=len(ts),
+        log_dropped=stats["log_dropped"], overruns=stats["overruns"],
+        solve_time_mean_ms=stats["solve_time_mean_s"] * 1e3,
+        solve_time_p99_ms=stats["solve_time_p99_s"] * 1e3,
+        closed_loop_b1_step_p99_ms=b1_step_p99_ms, wall_s=stats["wall_s"],
+        plant_thread_overruns=th.rate.overruns,
+        plant_thread_periods=int(round(stats["wall_s"] / RT_SIM_DT)),
+        set_realtime_priority=prio[0], x0_norm=float(np.linalg.norm(x0)),
+        final_x_norm=float(np.linalg.norm(x_final)), max_abs_u=float(np.abs(u).max()),
+        boxqp_solve_launches=k1, sqp_iterations_by_step=steps_iters,
+        warm_up_sqp_iterations=calls["iters"][0], boxqp_solve_launches_by_build=by_build,
+        phases=timer.summary(),
+    )
+    log(f"realtime: {json.dumps(rec)}")
+    if stats["steps"] != 30 or len(ts) != 30 or stats["log_dropped"]:
+        raise AssertionError(f"realtime: {stats['steps']} steps, {len(ts)} records, "
+                             f"{stats['log_dropped']} dropped")
+    if not rec["final_x_norm"] < rec["x0_norm"] or not rec["max_abs_u"] <= 1.0 + 1e-6:
+        raise AssertionError(f"realtime: |x_T| {rec['final_x_norm']}, max |u| {rec['max_abs_u']}")
+    if k1 <= 0 or k1 != sum(calls["iters"]) or len(calls["iters"]) != 31:
+        raise AssertionError(f"realtime: {k1} K1 launches, SQP iterations {calls['iters']}")
+    return k1, by_build, rec, ctrl
+
+
+def profile_realtime(ctrl, logdir):
+    """RT_PROFILE_STEPS steps of the real-time controller at B=1, back to
+    back (no rate), each as ``run_realtime_closed_loop`` makes it (x[None]
+    to the card, the step, u to the host) against the YAML's plant stepped
+    on the host in float64, under ``utils.profiling.device_trace`` (a Chrome
+    trace under ``logdir``): the device idle share and the eager kernels per
+    MPC step besides K1."""
+    from control_box_rst_tpu_torch.core import config as tc
+    from control_box_rst_tpu_torch.utils.profiling import device_trace
+
+    cfg = tc.load_config(SERVE_YAML)
+    dt = float(cfg["experiment"]["dt"])
+    _, system = tc.build_controller(cfg, dtype=torch.float64, device="cpu")
+    plant = tc.build_plant(cfg, system, dtype=torch.float64, device="cpu")
+    x0 = torch.as_tensor(cfg["x0"], dtype=torch.float64)[None]
+
+    def steps():
+        x, carry = x0, ctrl.init_carry(x0.to("cuda", torch.float32))
+        for k in range(RT_PROFILE_STEPS):
+            carry, out = ctrl.step(carry, x.to("cuda", torch.float32), k * dt, dt)
+            x = plant.step(x, out.u.to("cpu", torch.float64), dt)
+        return x
+
+    steps()
+    torch.cuda.synchronize()
+    with device_trace(logdir) as prof:
+        t0 = time.perf_counter()
+        steps()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rec = profile_record(prof, wall_ms)
+    k1 = [v for k, v in rec["own_kernels"].items() if "boxqp_solve" in k]
+    if len(k1) != 1:
+        raise AssertionError(f"realtime profile: the profiler saw {list(rec['own_kernels'])}")
+    rec.update(mpc_steps=RT_PROFILE_STEPS, sqp_iterations=k1[0]["launches"],
+               eager_kernels_per_mpc_step=(rec["n_device_kernels"] - k1[0]["launches"])
+               / RT_PROFILE_STEPS,
+               step_ms=wall_ms / RT_PROFILE_STEPS)
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -3715,11 +4073,18 @@ def main() -> int:
     # ---- the config loader and the master CLI ----
     master_k1, master_k4, master_builds, master_rec = phase_master()
     stamp("master")
+    # ---- the gRPC master service and the real-time loop (B=1) ----
+    transport = serve_transport()
+    log(f"serve transport: {transport}")
+    serve_k1, serve_builds, serve_rec = phase_serve(transport)
+    stamp("serve")
+    rt_k1, rt_builds, rt_rec, rt_ctrl = phase_realtime(cl_rec["p99_single_step_ms"])
+    stamp("realtime")
     # each count from its own path's run; K1 and K4 carry one count per path
     k1_paths = {"sqp_config1": launches["boxqp_solve"], **nl_launches, "closed_loop": cl_k1,
                 "nonuniform_open_loop": nu_ol_k1, "nonuniform_closed_loop": nu_cl_k1,
                 **grid_launches, "hs_closed_loop": hs_cl_k1, "dual_mode_kalman": dm_k1,
-                **master_k1}
+                **master_k1, "serve_config1": serve_k1, "realtime_config1": rt_k1}
     k4_paths = {"lm_config1": lm_launches["btridiag_factor_solve_inplace"], "closed_loop_lm": cl_k4,
                 **ip_launches, **master_k4}
     k3_paths = {"lm_config1_inplace_false": lm_launches["btridiag_factor_solve"], **ip_k3}
@@ -3742,7 +4107,7 @@ def main() -> int:
     # (6, 4) the uncompressed grid and the zoo's cart-pole, (5, 2) and (5, 3)
     # the zoo; the (4, 2) / (4, 3) entry keeps the rest of the total
     builds_by_path = {p: r["boxqp_solve_launches_by_build"] for p, r in grid_rec.items()}
-    builds_by_path.update(master_builds)
+    builds_by_path.update(master_builds, serve_config1=serve_builds, realtime_config1=rt_builds)
     own = {f"{nz}x{nc}" for nz, nc in k1_builds}
     records[0]["launches_all_builds"] = launches["boxqp_solve"]
     records[0]["launches_by_path"] = {
@@ -3818,6 +4183,8 @@ def main() -> int:
                 prof["n_device_kernels"] - k4[0]["launches"]) / k4[0]["launches"]
         log(json.dumps({"profile_ip": ip_prof}))
         log(json.dumps({"profile_grids": profile_new_paths(grid_solvers, x0s_np)}))
+        log(json.dumps({"profile_realtime": profile_realtime(
+            rt_ctrl, str(ROOT / "build" / "traces"))}))
         stamp("profile")
 
     # ---- 7 result ----
@@ -3831,6 +4198,8 @@ def main() -> int:
     log(json.dumps({"dual_mode": dm_rec}))
     log(json.dumps({"bcr": bcr_rec}))
     log(json.dumps({"master": master_rec}))
+    log(json.dumps({"serve": serve_rec}))
+    log(json.dumps({"realtime": rt_rec}))
     # last: the config-4 batch by the plain backend (see its docstring)
     nu_cl_rec["plain"] = phase_nonuniform_vs_plain(*nu_cl)
     stamp("nonuniform_vs_plain")

@@ -9,10 +9,14 @@ Usage:
     python -m control_box_rst_tpu_torch.master --config experiment.yaml \\
         [--out results_dir] [--format tsv|yaml|both] [--print-signals] \\
         [--device cuda|cpu]
+    python -m control_box_rst_tpu_torch.master --serve localhost:50051 \\
+        [--config experiment.yaml] [--device cuda|cpu]   # gRPC server mode
 
 ``--device`` defaults to the card and raises when there is none; the CPU
-has to be asked for. ``--serve`` (the reference's gRPC master service) is
-not ported yet and raises by name.
+has to be asked for. ``--serve ADDR`` runs the gRPC master service
+(``comm/server.py``) on ADDR, ``--config`` preloading the experiment; its
+first line of output names the address it listens on, with the port it
+bound (``localhost:0`` picks a free one).
 """
 from __future__ import annotations
 
@@ -29,7 +33,7 @@ def main(argv=None) -> int:
     p.add_argument(
         "--serve", "-s", nargs="?", const="localhost:50051", default=None,
         metavar="ADDR",
-        help="gRPC master service (not ported yet: raises)",
+        help="run as a gRPC master service on ADDR; --config preloads the experiment",
     )
     p.add_argument("--out", "-o", default=None, help="output directory")
     p.add_argument("--format", choices=("tsv", "yaml", "both"), default="tsv")
@@ -38,19 +42,32 @@ def main(argv=None) -> int:
                    help="torch device to run on (default: the card; cpu must be asked for)")
     args = p.parse_args(argv)
 
-    if args.serve is not None:
-        raise NotImplementedError(
-            "master --serve (the gRPC master service) is not ported yet "
-            "(slice F2: comm/ and the service)"
-        )
-    if not args.config:
-        p.error("--config is required")
-
     from control_box_rst_tpu_torch.core.config import load_config, run_experiment
     from control_box_rst_tpu_torch.core.export import export_tsv, export_yaml
     from control_box_rst_tpu_torch.utils.precision import resolve_device
 
     device = resolve_device(args.device)
+    if args.serve is not None:
+        from concurrent import futures
+
+        import grpc
+
+        from control_box_rst_tpu_torch.comm.server import MasterServer, bound_address
+
+        master = MasterServer(device=device)
+        if args.config:
+            with open(args.config) as f:
+                master.set_section("config", f.read())
+        server = grpc.server(futures.ThreadPoolExecutor(max_workers=4))
+        server.add_generic_rpc_handlers((master.grpc_handler(),))
+        port = server.add_insecure_port(args.serve)
+        server.start()
+        print(f"corbo_tpu master listening on {bound_address(args.serve, port)}", flush=True)
+        server.wait_for_termination()
+        return 0
+
+    if not args.config:
+        p.error("--config is required unless --serve is given")
     config = load_config(args.config)
     t0 = time.perf_counter()
     rec = run_experiment(config, device=device)

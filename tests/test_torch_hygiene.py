@@ -78,8 +78,46 @@ def test_every_listed_module_exists():
         "core/factory.py", "core/signals.py", "core/export.py", "core/time_series.py",
         "core/reference.py", "core/config.py", "sim/environment.py", "master.py",
         "models/outputs.py", "models/filters.py", "ops/integrators.py",
+        "core/console.py", "core/timex.py", "native/__init__.py", "native/runtime.cpp",
+        "utils/profiling.py", "comm/__init__.py", "comm/service.py", "comm/server.py",
+        "comm/client.py", "comm/master_service_pb2.py", "comm/proto/master_service.proto",
+        "sim/plant_threaded.py", "sim/realtime.py", "gui/__init__.py", "gui/__main__.py",
+        "gui/app.py", "gui/scope.py", "gui/signal_helper.py",
     ):
         assert (PKG / rel).is_file(), rel
+
+
+@pytest.mark.parametrize("rel", ["comm/master_service_pb2.py", "comm/proto/master_service.proto",
+                                 "native/runtime.cpp"])
+def test_copies_of_the_reference_are_byte_for_byte(rel):
+    """The generated protobuf module and its IDL are the JAX package's, byte
+    for byte (the same wire; one descriptor pool when both packages meet in
+    one process), and so is the native runtime's source."""
+    assert (PKG / rel).read_bytes() == (ROOT / "control_box_rst_tpu" / rel).read_bytes()
+
+
+def test_package_import_leaves_the_service_and_the_runtime_alone():
+    """``import control_box_rst_tpu_torch`` imports neither ``comm`` nor
+    ``grpc`` (the port imports where grpc is absent), and importing every
+    module loads no native library (``native`` builds at first use)."""
+    mods = [
+        ".".join(p.relative_to(ROOT).with_suffix("").parts)
+        for p in SOURCES[:-1] if p.name != "__init__.py"
+    ]
+    code = (
+        "import importlib, sys\n"
+        "import control_box_rst_tpu_torch\n"
+        "assert 'grpc' not in sys.modules, 'grpc'\n"
+        "assert not any(m.startswith('control_box_rst_tpu_torch.comm') for m in sys.modules)\n"
+        f"[importlib.import_module(m) for m in {mods!r}]\n"
+        "from control_box_rst_tpu_torch import native\n"
+        "assert native._lib is None\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True
+    )
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-2000:]
 
 
 def test_package_imports_in_a_fresh_process_without_jax():
@@ -102,6 +140,28 @@ def test_package_imports_in_a_fresh_process_without_jax():
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True
     )
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-2000:]
+
+
+def test_service_and_realtime_refuse_the_cpu_unless_asked():
+    """The gRPC master, the threaded plant and the real-time loop take
+    ``device=None`` to mean the card too."""
+    from control_box_rst_tpu_torch.comm import MasterServer
+    from control_box_rst_tpu_torch.models import DoubleIntegratorContinuous
+    from control_box_rst_tpu_torch.sim import SimulatedPlant, SimulatedPlantThreaded
+    from control_box_rst_tpu_torch.sim.realtime import run_realtime_closed_loop
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None is allowed to run")
+    plant = SimulatedPlant(system=DoubleIntegratorContinuous())
+    x0 = np.zeros(2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MasterServer()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SimulatedPlantThreaded(plant, x0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_realtime_closed_loop(None, lambda: x0, lambda u: None, x0, 0.1, 0.1)
+    assert MasterServer(device="cpu").device.type == "cpu"
+    assert SimulatedPlantThreaded(plant, x0, device="cpu")._device.type == "cpu"
 
 
 def test_entry_points_refuse_the_cpu_unless_asked():

@@ -6,7 +6,7 @@ config) writes the reference master's set of files: the same TSV names
 with the same numbers of rows and columns, ``signals.yaml`` with the same
 tree, ``config.json`` equal. Without ``--device`` on a machine with no card
 the master raises before it writes anything, and so does
-``run_experiment``; ``--serve`` raises by name.
+``run_experiment``; so does ``--serve``, before it binds a port.
 """
 import copy
 import json
@@ -70,5 +70,5 @@ def test_master_refuses_without_a_card_and_refuses_serve(tmp_path, monkeypatch):
     assert not (tmp_path / "out").exists()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tc.run_experiment(copy.deepcopy(EXT_BASE))
-    with pytest.raises(NotImplementedError, match="--serve"):
-        master.main(["--serve", "localhost:50051", "--config", str(path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        master.main(["--serve", "localhost:0", "--config", str(path)])
