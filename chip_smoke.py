@@ -23,9 +23,10 @@ dual-mode closed loop of ``examples/config5_kalman_dual_mode.yaml``,
 block cyclic reduction in the plain ADMM, and the port's config loader and
 master CLI on the six example YAMLs, a batched config 1, the loader's IP and
 LM solvers and the twelve systems of the model zoo, the gRPC master service
-(config 1's YAML served in this process and by ``master --serve``) and the
+(config 1's YAML served in this process and by ``master --serve``), the
 real-time loop (config 1's controller at wall-clock rate against a threaded
-plant, B=1) — after building
+plant, B=1) and the device mesh (config 1 and a sharded config-5 sweep over
+one rank and over two ranks that share the card) — after building
 every CUDA kernel of those paths from the sources in this
 checkout and holding each kernel against its plain PyTorch version on the same
 inputs. There is no CPU path: without a CUDA device the script exits non-zero
@@ -253,7 +254,22 @@ Phases
              every controller call > 0; overruns of the loop and of the
              plant thread, solve mean / p99 beside the closed_loop phase's
              B=1 step p99, what ``set_realtime_priority`` returned (reported)
- 17 result   one JSON line with every kernel's record, then the contract line
+ 17 mesh     the device mesh (``parallel/mesh.py``): (a) one rank in this
+             process, ``make_mesh()`` on the card (nccl), config 1's main
+             batch through ``make_batched_solver(mesh=)``: U == the main
+             phase's U bit for bit, K1 launches == the lock-step SQP
+             iterations > 0, the four outputs Shard(0) DTensors over the
+             one-rank mesh, converged >= 0.99, max |U - U_oracle| <= 1e-3,
+             solves/s beside the main phase's (the wrapper's overhead); (b)
+             MESH_RANKS ranks spawned on the one card (gloo: NCCL refuses
+             two ranks on one GPU) under one timeout: the main
+             batch split over them, gathered U == the unsharded U bit for
+             bit, each rank's K1 launches == its lock-step SQP iterations >
+             0; ``benchmark_varying_initial_state(mesh=)`` over a 64 x 64
+             grid of config 5 with state noise (5 steps) == the unsharded
+             sweep on every field, lane by lane; ``entry.dryrun_multichip``
+             in every rank. One card: the mechanics, not scaling
+ 18 result   one JSON line with every kernel's record, then the contract line
 
 Output: progress lines (with ``--profile`` a ``{"profile": ...}`` line with
 the device time by kernel and the hand-written kernels launch by launch, a
@@ -270,7 +286,7 @@ adds ``profile_ip``: one traced config-1 and constrained-DI IP batch, eager
 kernels per IP iteration, and ``profile_grids``: one traced batch of each
 path of phases 10-12), ``{"grids": ...}``, ``{"hs_closed_loop": ...}``,
 ``{"dual_mode": ...}``, ``{"bcr": ...}``, ``{"master": ...}``, ``{"serve":
-...}`` and ``{"realtime": ...}`` lines (``--profile`` adds
+...}`` and ``{"realtime": ...}`` and ``{"mesh": ...}`` lines (``--profile`` adds
 ``profile_realtime``: 10 steps of the real-time controller at B=1 back to
 back under ``utils.profiling.device_trace``, with its device idle share and
 eager kernels per MPC step), the nvidia-smi line, a
@@ -278,7 +294,8 @@ eager kernels per MPC step), the nvidia-smi line, a
 line (per kernel the contract's keys and, where a kernel was redesigned,
 ``earlier_ms`` / ``vs_earlier``: the kernel it replaced on the same inputs,
 and ``launch``: route, shared memory per lane, resident lanes per SM,
-registers per thread; the box-QP solve kernel adds ``launches_by_path`` (with ``serve_config1`` and ``realtime_config1``) and
+registers per thread; the box-QP solve kernel adds ``launches_by_path`` (with ``serve_config1``, ``realtime_config1``,
+``mesh_config1`` and each mesh rank's ``mesh_rank<r>_{config1,sweep,dryrun}``) and
 ``shapes``, its records at the nonlinear paths' shapes, on the closed
 loop's step-5 QPs, at config 4's two horizons and on the uncompressed
 config-6 QPs; ``boxqp_solve[nz6_nc4]``, ``boxqp_solve[nz5_nc2]`` and
@@ -1709,7 +1726,7 @@ def phase_main(ocp, cfg, x0s_np, trials: int, reps: int):
         torch.cuda.synchronize()
         lats.append(time.perf_counter() - t0)
 
-    return launches, dict(
+    return launches, U.cpu(), dict(
         batch=B, solves_per_s=B * reps / best, batch_solve_ms=best / reps * 1e3,
         converged_frac=conv, max_u_err_vs_f64_oracle=u_err,
         mean_sqp_iters=float(iters.float().mean()),
@@ -3960,6 +3977,221 @@ def profile_realtime(ctrl, logdir):
     return rec
 
 
+MESH_RANKS = 2          # ranks that share the one card in part (b)
+MESH_GRID = 64          # the sharded sweep: a 64 x 64 grid of x0, 4096 rollouts
+MESH_STEPS = 5          # its MPC steps
+MESH_NOISE_STD = 0.01   # its plant's state noise, from a generator seeded with MESH_SEED
+MESH_SEED = 11
+MESH_RANK_TIMEOUT_S = 300  # part (b): all ranks, CUDA context and library loads included
+MESH_SWEEP_FIELDS = ("ts", "x_true", "y", "x_observed", "u", "ok")
+
+
+def mesh_sweep(mesh=None):
+    """``benchmark_varying_initial_state`` on config 5's controller and plant
+    (``entry.rollouts``, the closed_loop phase's) with state noise, over the
+    MESH_GRID x MESH_GRID grid of x0 in [-1, 1]^2 for MESH_STEPS steps, on
+    the card, the generator seeded with MESH_SEED; sharded over ``mesh``
+    when one is given. Returns (the result's fields as numpy arrays of this
+    rank's lanes or of the whole batch, the call's wall seconds, construction
+    included, K1 launches)."""
+    from control_box_rst_tpu_torch.entry import rollouts
+    from control_box_rst_tpu_torch.ops.cuda import admm_kernel as ak
+    from control_box_rst_tpu_torch.sim import GaussianNoise
+    from control_box_rst_tpu_torch.sim.benchmarks import benchmark_varying_initial_state
+
+    ctrl, plant, _, dt = rollouts(N=50)
+    plant = plant.replace(state_noise=GaussianNoise(std=MESH_NOISE_STD))
+    grid = np.linspace(-1.0, 1.0, MESH_GRID)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(MESH_SEED)
+    torch.cuda.synchronize()
+    ak.reset_launch_counts()
+    t0 = time.perf_counter()
+    res, _ = benchmark_varying_initial_state(plant, ctrl, grid, grid, MESH_STEPS, dt,
+                                             mesh=mesh, generator=gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = ak.LAUNCHES["boxqp_solve"]
+    fields = {f: getattr(res, f) for f in MESH_SWEEP_FIELDS}
+    fields.update({f"info.{k}": v for k, v in res.info.items()})
+    return fields, wall, k1
+
+
+def mesh_rank(rank: int, x0s_np):
+    """One rank of part (b) of the mesh phase (``spawn_ranks`` made its
+    process group): config 1's main batch sharded over the ranks through
+    ``make_batched_solver(mesh=)`` (a warm-up on the first lanes, then the
+    counted batch), gathered (``gather_batch``); the sharded sweep
+    (``mesh_sweep``); ``entry.dryrun_multichip``. Returns this rank's
+    counts and times; rank 0 also the gathered arrays."""
+    import torch.distributed as dist
+
+    from control_box_rst_tpu_torch.entry import dryrun_multichip, flagship
+    from control_box_rst_tpu_torch.ops.cuda import admm_kernel as ak
+    from control_box_rst_tpu_torch.parallel import (
+        batch_sharding,
+        make_batched_solver,
+        make_mesh,
+        shard_batch,
+    )
+    from control_box_rst_tpu_torch.parallel.mesh import gather_batch, mesh_device
+
+    mesh = make_mesh()  # the card
+    world = mesh.size()
+    ocp, cfg = flagship(N=50, device=mesh_device(mesh))
+    solver = make_batched_solver(ocp, cfg, dt_init=0.1, mesh=mesh)
+    solver(x0s_np[:256 * world])  # warm-up: library loads
+    x0s = shard_batch(x0s_np, mesh)
+    torch.cuda.synchronize()
+    dist.barrier()
+    ak.reset_launch_counts()
+    t0 = time.perf_counter()
+    U, obj, status, iters = solver(x0s)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    k1 = ak.LAUNCHES["boxqp_solve"]
+    lock_step = int(iters.to_local().max())
+    placements_ok = all(
+        tuple(o.placements) == batch_sharding(mesh) and o.to_local().shape[0] == o.shape[0] // world
+        for o in (U, obj, status, iters))
+    t0 = time.perf_counter()
+    U_full, status_full = gather_batch((U, status))
+    gather_s = time.perf_counter() - t0
+    dist.barrier()
+    sweep, sweep_s, sweep_k1 = mesh_sweep(mesh)
+    sweep = gather_batch(sweep)
+    ak.reset_launch_counts()
+    dryrun_multichip(world)
+    dryrun_k1 = ak.LAUNCHES["boxqp_solve"]
+    rec = dict(
+        rank=rank, world=world, backend=dist.get_backend(), card=str(
+            torch.cuda.get_device_properties(torch.cuda.current_device()).uuid),
+        local_lanes=int(U.to_local().shape[0]), placements_ok=placements_ok,
+        solve_s=solve_s, solves_per_s=U.to_local().shape[0] / solve_s, k1_config1=k1,
+        lock_step_sqp_iterations=lock_step, gather_s=gather_s,
+        sweep_s=sweep_s, sweep_rollouts_per_s=MESH_GRID ** 2 / sweep_s, k1_sweep=sweep_k1,
+        k1_dryrun=dryrun_k1)
+    if rank == 0:
+        rec["U"], rec["status"] = U_full.cpu().numpy(), status_full.cpu().numpy()
+        rec["sweep"] = {k: v.cpu().numpy() for k, v in sweep.items()}
+    return rec
+
+
+def phase_mesh(ocp, cfg, x0s_np, U_main, main_rec):
+    """The device mesh (``parallel/mesh.py``, ``make_batched_solver(mesh=)``,
+    ``benchmark_varying_initial_state(mesh=)``, ``entry.dryrun_multichip``).
+    (a) One rank in this process: ``make_mesh()`` on the card (nccl), config
+    1's main batch through ``make_batched_solver(mesh=)``; gates: U equals
+    the main phase's U bit for bit, K1 launches == the lock-step SQP
+    iterations > 0, the four outputs ``Shard(0)`` DTensors over the
+    one-rank mesh, converged >= 0.99 and max |U - U_oracle| <= 1e-3; the
+    group is destroyed after. (b) MESH_RANKS ranks that share the card
+    (gloo), spawned under one timeout (MESH_RANK_TIMEOUT_S): the main batch
+    split over them, gathered U == the unsharded U bit for bit, each rank's
+    K1 launches > 0 and == its lock-step SQP iterations; the sharded sweep
+    of ``mesh_sweep`` == the unsharded sweep lane by lane, every field,
+    noise included, each rank's K1 launches > 0; ``dryrun_multichip``.
+    Returns (K1 launches by path, record)."""
+    import torch.distributed as dist
+
+    from control_box_rst_tpu_torch.ops.cuda import admm_kernel as ak
+    from control_box_rst_tpu_torch.parallel import batch_sharding, make_batched_solver, make_mesh
+    from control_box_rst_tpu_torch.parallel.mesh import spawn_ranks
+    from torch.distributed.tensor import DTensor
+
+    t_phase = time.perf_counter()
+    # ---- (a) one rank, in process ----
+    t0 = time.perf_counter()
+    mesh = make_mesh()
+    solver = make_batched_solver(ocp, cfg, dt_init=0.1, mesh=mesh)
+    x0s = torch.as_tensor(x0s_np, device="cuda")
+    solver(x0s[:256])  # warm-up
+    torch.cuda.synchronize()
+    ak.reset_launch_counts()
+    outs = solver(x0s)
+    torch.cuda.synchronize()
+    k1_a = ak.LAUNCHES["boxqp_solve"]
+    U, obj, status, iters = outs
+    if not all(isinstance(o, DTensor) and tuple(o.placements) == batch_sharding(mesh)
+               and o.device_mesh.size() == 1 and o.to_local().shape[0] == x0s_np.shape[0]
+               for o in outs):
+        raise AssertionError("mesh (a): the outputs are not Shard(0) DTensors over one rank")
+    U_a = U.to_local()
+    same_bits = bool(torch.equal(U_a.cpu(), U_main))
+    lock_step = int(iters.to_local().max())
+    conv = float((status.to_local() == 1).float().mean())
+    gold = np.load(GOLDEN)
+    u_err = float(np.max(np.abs(U_a[:gold["U"].shape[0]].double().cpu().numpy() - gold["U"])))
+    best = float("inf")
+    for _ in range(TRIALS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(REPS):
+            solver(x0s)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t1)
+    one = dict(backend=dist.get_backend(), world=dist.get_world_size(),
+               solves_per_s=x0s_np.shape[0] * REPS / best,
+               main_phase_solves_per_s=main_rec["solves_per_s"], k1_launches=k1_a,
+               lock_step_sqp_iterations=lock_step, bit_equal_to_main=same_bits,
+               converged_frac=conv, max_u_err_vs_f64_oracle=u_err)
+    dist.destroy_process_group()
+    one["wall_s"] = time.perf_counter() - t0
+    log(f"mesh (a): {json.dumps(one)}")
+    if not same_bits:
+        raise AssertionError(
+            f"mesh (a): U differs from the main phase's by {float((U_a.cpu() - U_main).abs().max())}")
+    if k1_a <= 0 or k1_a != lock_step:
+        raise AssertionError(f"mesh (a): {k1_a} K1 launches, lock-step SQP iterations {lock_step}")
+    if conv < CONV_GATE or not u_err <= ERR_GATE:
+        raise AssertionError(f"mesh (a): converged {conv}, max |U - U_oracle| {u_err}")
+
+    # ---- (b) MESH_RANKS ranks sharing the card, gloo ----
+    ref, ref_s, ref_k1 = mesh_sweep()
+    ref = {k: v.cpu().numpy() for k, v in ref.items()}
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(mesh_rank, MESH_RANKS, args=(x0s_np,), timeout_s=MESH_RANK_TIMEOUT_S)
+    wall_b = time.perf_counter() - t0
+    r0 = ranks[0]
+    U_b = r0.pop("U")
+    status_b = r0.pop("status")
+    sweep = r0.pop("sweep")
+    sweep_diff = {k: float(np.max(np.abs(sweep[k].astype(np.float64) - ref[k].astype(np.float64))))
+                  for k in ref}
+    sweep_equal = {k: bool(np.array_equal(sweep[k], ref[k])) for k in ref}
+    two = dict(
+        wall_s=wall_b, world=MESH_RANKS, backend=r0["backend"],
+        distinct_cards=len({r["card"] for r in ranks}),
+        gather="c10d all_gather of the CUDA shards (parallel.mesh.gather_batch)",
+        bit_equal_to_main=bool(np.array_equal(U_b, U_main.numpy())),
+        max_abs_u_diff_vs_main=float(np.max(np.abs(U_b - U_main.numpy()))),
+        converged_frac=float((status_b == 1).mean()),
+        sweep_rollouts=MESH_GRID ** 2, sweep_steps=MESH_STEPS,
+        sweep_unsharded_rollouts_per_s=MESH_GRID ** 2 / ref_s, sweep_unsharded_k1=ref_k1,
+        sweep_fields_bit_equal=sweep_equal, sweep_max_abs_diff=sweep_diff,
+        ranks=[{k: v for k, v in r.items() if k != "card"} for r in ranks])
+    log(f"mesh (b): {json.dumps(two)}")
+    for r in ranks:
+        if r["backend"] != "gloo" or r["world"] != MESH_RANKS or not r["placements_ok"]:
+            raise AssertionError(f"mesh (b): rank {r['rank']}: {r}")
+        if r["k1_config1"] <= 0 or r["k1_config1"] != r["lock_step_sqp_iterations"]:
+            raise AssertionError(f"mesh (b): rank {r['rank']}: {r['k1_config1']} K1 launches, "
+                                 f"lock-step SQP iterations {r['lock_step_sqp_iterations']}")
+        if r["k1_sweep"] <= 0 or r["k1_dryrun"] <= 0:
+            raise AssertionError(f"mesh (b): rank {r['rank']}: K1 launches {r}")
+    if not two["bit_equal_to_main"]:
+        raise AssertionError(f"mesh (b): gathered U differs by {two['max_abs_u_diff_vs_main']}")
+    if not all(sweep_equal.values()):
+        raise AssertionError(f"mesh (b): sharded sweep differs from the unsharded: {sweep_diff}")
+    rec = {"one_rank": one, "two_ranks": two, "phase_s": time.perf_counter() - t_phase}
+    k1_paths = {"mesh_config1": k1_a}
+    for r in ranks:
+        k1_paths.update({f"mesh_rank{r['rank']}_config1": r["k1_config1"],
+                         f"mesh_rank{r['rank']}_sweep": r["k1_sweep"],
+                         f"mesh_rank{r['rank']}_dryrun": r["k1_dryrun"]})
+    return k1_paths, rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -4036,7 +4268,7 @@ def main() -> int:
         return 3
 
     # ---- 4 main path (SQP), 5 LM path, 6 nonlinear paths ----
-    launches, main_rec = phase_main(ocp, cfg, x0s_np, TRIALS, REPS)
+    launches, U_main, main_rec = phase_main(ocp, cfg, x0s_np, TRIALS, REPS)
     stamp("main")
     lm_launches, lm_rec = phase_lm(ocp, lm_cfg, x0s_np, LM_TRIALS)
     stamp("lm")
@@ -4080,11 +4312,15 @@ def main() -> int:
     stamp("serve")
     rt_k1, rt_builds, rt_rec, rt_ctrl = phase_realtime(cl_rec["p99_single_step_ms"])
     stamp("realtime")
+    # ---- the device mesh: one rank in process, two ranks sharing the card ----
+    mesh_k1, mesh_rec = phase_mesh(ocp, cfg, x0s_np, U_main, main_rec)
+    del U_main
+    stamp("mesh")
     # each count from its own path's run; K1 and K4 carry one count per path
     k1_paths = {"sqp_config1": launches["boxqp_solve"], **nl_launches, "closed_loop": cl_k1,
                 "nonuniform_open_loop": nu_ol_k1, "nonuniform_closed_loop": nu_cl_k1,
                 **grid_launches, "hs_closed_loop": hs_cl_k1, "dual_mode_kalman": dm_k1,
-                **master_k1, "serve_config1": serve_k1, "realtime_config1": rt_k1}
+                **master_k1, "serve_config1": serve_k1, "realtime_config1": rt_k1, **mesh_k1}
     k4_paths = {"lm_config1": lm_launches["btridiag_factor_solve_inplace"], "closed_loop_lm": cl_k4,
                 **ip_launches, **master_k4}
     k3_paths = {"lm_config1_inplace_false": lm_launches["btridiag_factor_solve"], **ip_k3}
@@ -4200,6 +4436,7 @@ def main() -> int:
     log(json.dumps({"master": master_rec}))
     log(json.dumps({"serve": serve_rec}))
     log(json.dumps({"realtime": rt_rec}))
+    log(json.dumps({"mesh": mesh_rec}))
     # last: the config-4 batch by the plain backend (see its docstring)
     nu_cl_rec["plain"] = phase_nonuniform_vs_plain(*nu_cl)
     stamp("nonuniform_vs_plain")

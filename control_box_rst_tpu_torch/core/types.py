@@ -15,3 +15,10 @@ class SolverStatus(enum.IntEnum):
     CONVERGED = 1
     EARLY_TERMINATED = 2   # iteration budget exhausted before tolerance met
     INFEASIBLE = 3         # constraint violation not decreasing / diverged
+
+
+class ControllerStatus(enum.IntEnum):
+    """Outcome of one controller step (the reference's ``step()`` bool)."""
+
+    OK = 1
+    FAILED = 0

@@ -46,6 +46,10 @@ kalman_dual_mode(N) → (controller, plant, T_steps=60, dt=0.1, observer):
                steady-state Kalman filter, MPC handing over to an LQR inside
                a terminal ball.
 entry()      → (fn, example_args): the batched MPC solve on that config.
+dryrun_multichip(n) → one sharded step of config 1 (N=8) over an n-rank
+               mesh, in every rank of the job:
+
+    torchrun --nproc-per-node N -m control_box_rst_tpu_torch.entry --dryrun-multichip
 """
 from __future__ import annotations
 
@@ -448,3 +452,46 @@ def entry(device=None):
     x0s = torch.zeros((8, 2), dtype=torch.float32, device=device)
     x0s[:, 0] = 1.0
     return fn, (x0s,)
+
+
+def dryrun_multichip(n_devices: int, device_type=None) -> None:
+    """Shard the batched MPC solve of config 1 (N=8) over an n-rank mesh and
+    run one step on 2n lanes. Called in every rank of an n-rank job (the
+    ``torchrun`` environment, a group the caller made, or one rank alone);
+    ``device_type=None`` means the card. Rank 0 prints one line."""
+    import torch.distributed as dist
+
+    from control_box_rst_tpu_torch.parallel import make_batched_solver, make_mesh, shard_batch
+    from control_box_rst_tpu_torch.parallel.mesh import gather_batch, mesh_device
+
+    mesh = make_mesh(device_type=device_type)
+    if mesh.size() != n_devices:
+        raise RuntimeError(f"expected a {n_devices}-rank mesh, got {mesh.size()} ranks")
+    ocp, cfg = flagship(N=8, device=mesh_device(mesh))  # tiny shapes for the dry run
+    solver = make_batched_solver(ocp, cfg, dt_init=0.1, mesh=mesh)
+    B = 2 * n_devices
+    x0s = torch.linspace(-1.0, 1.0, B)[:, None] * torch.ones((B, 2))
+    U, obj, status, iters = solver(shard_batch(x0s, mesh))
+    if tuple(U.shape) != (B, 8, 1) or tuple(U.to_local().shape) != (2, 8, 1):
+        raise AssertionError(f"U {tuple(U.shape)}, local {tuple(U.to_local().shape)}")
+    objectives = gather_batch(obj)[:4].cpu().numpy()
+    if dist.get_rank() == 0:
+        print(f"dryrun_multichip OK: {n_devices} ranks ({dist.get_backend()}), batch {B}, "
+              f"objectives {objectives.round(4)}", flush=True)
+
+
+if __name__ == "__main__":
+    import argparse
+    import os
+
+    ap = argparse.ArgumentParser(description="Entry points of the port.")
+    ap.add_argument("--dryrun-multichip", action="store_true",
+                    help="one sharded config-1 step over the ranks of this job")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                    help="the mesh's device type (default: the card)")
+    opts = ap.parse_args()
+    if opts.dryrun_multichip:
+        import torch.distributed as dist
+
+        dryrun_multichip(int(os.environ.get("WORLD_SIZE", 1)), opts.device)
+        dist.destroy_process_group()

@@ -1,9 +1,11 @@
-"""Batched MPC solves and closed-loop rollouts.
+"""Batched MPC solves and closed-loop rollouts, optionally sharded.
 
-Counterpart of the JAX package's ``parallel/sharded_solve.py`` — single
-device only so far (a ``mesh`` comes with the multi-device slice). Each MPC
+Counterpart of the JAX package's ``parallel/sharded_solve.py``. Each MPC
 solve is independent, so the batch is simply the leading dim of every tensor
-the solver touches.
+the solver touches. Under a ``mesh`` (``parallel/mesh.py``) each rank runs
+the same single-device solve on its own lanes — the counterpart of the
+reference's ``shard_map``, collective-free — and the results are ``Shard(0)``
+DTensors over the mesh.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import torch
 
 from control_box_rst_tpu_torch.ocp.problem import Trajectory
 from control_box_rst_tpu_torch.ocp.transcribe import TranscribedOCP
+from control_box_rst_tpu_torch.parallel.mesh import from_local_batch, local_batch, mesh_device
 from control_box_rst_tpu_torch.sim.closed_loop import ClosedLoopResult, run_closed_loop
 from control_box_rst_tpu_torch.sim.plant import SimulatedPlant
 from control_box_rst_tpu_torch.solvers.ip import IPConfig, ip_solve
@@ -27,11 +30,13 @@ from control_box_rst_tpu_torch.utils.precision import resolve_device, resolve_dt
 from control_box_rst_tpu_torch.utils.tree import tree_to
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharding over a device mesh is not ported yet (multi-device slice G)"
-        )
+def _resolve_device(device, mesh) -> torch.device:
+    """``device``, or the mesh's: a sharded solve runs where its shards live."""
+    if mesh is None:
+        return resolve_device(device)
+    if device is not None and torch.device(device).type != mesh.device_type:
+        raise ValueError(f"device {device} is not the mesh's ({mesh.device_type})")
+    return mesh_device(mesh)
 
 
 def make_batched_solver(
@@ -48,9 +53,12 @@ def make_batched_solver(
     to be asked for (``device="cpu"``). ``dtype=None`` means float32. The OCP
     is moved to that device/dtype once, here; x0s may be a tensor or a numpy
     array.
+
+    With a ``mesh`` the device is the mesh's; x0s may also be a ``Shard(0)``
+    DTensor (a whole batch is sharded first), each rank solves its own lanes,
+    and the four results are ``Shard(0)`` DTensors over the mesh.
     """
-    _refuse_mesh(mesh)
-    device = resolve_device(device)
+    device = _resolve_device(device, mesh)
     dtype = resolve_dtype(dtype)
     # fused QP solve: float32 box-only QP on the card — the kernel's envelope
     cfg = resolve_qp_backend(cfg or SQPConfig(), ocp.ng, device, dtype)
@@ -72,7 +80,9 @@ def make_batched_solver(
         res = sqp_solve(o, traj0, cfg, hoisted=hoisted)
         return res.traj.U, res.objective, res.status, res.iterations
 
-    return solve
+    if mesh is None:
+        return solve
+    return lambda x0s: from_local_batch(solve(local_batch(x0s, mesh)[0]), mesh)
 
 
 def _from_straight_line(ocp: TranscribedOCP, dt_init: float, device, dtype, run):
@@ -163,17 +173,31 @@ def make_batched_closed_loop(
     fused box-QP kernel for a float32 solve on the card. ``observer``
     (``None``: the state is measured) is moved there too. x0s may be a
     tensor or a numpy array; ``generator`` is what noisy plants draw from
-    (on ``device``; ``None`` means one seeded with 0)."""
-    _refuse_mesh(mesh)
-    device = resolve_device(device)
+    (on ``device``; ``None`` means one seeded with 0).
+
+    With a ``mesh`` the device is the mesh's; x0s may also be a ``Shard(0)``
+    DTensor, each rank rolls out its own lanes, and every field of the
+    result is a ``Shard(0)`` DTensor over the mesh. Every rank draws the
+    noise of the whole batch from its generator (the same seed on every
+    rank) and keeps its own lanes, so a lane's rollout, noise included, is
+    the one it has in the unsharded batch."""
+    device = _resolve_device(device, mesh)
     dtype = resolve_dtype(dtype)
     controller = controller.to(device, dtype)
     plant = tree_to(plant, device, dtype)
     observer = None if observer is None else tree_to(observer, device, dtype)
 
-    def rollout(x0s, generator=None) -> ClosedLoopResult:
+    def run(x0s, generator, plant) -> ClosedLoopResult:
         x0s = torch.as_tensor(x0s).to(device=device, dtype=dtype)
         return run_closed_loop(plant, controller, x0s, T_steps, dt, observer=observer,
                                generator=generator)
 
-    return rollout
+    if mesh is None:
+        return lambda x0s, generator=None: run(x0s, generator, plant)
+
+    def sharded(x0s, generator=None) -> ClosedLoopResult:
+        local, offset, total = local_batch(x0s, mesh)
+        return from_local_batch(
+            run(local, generator, plant.with_lane_window(offset, total)), mesh)
+
+    return sharded

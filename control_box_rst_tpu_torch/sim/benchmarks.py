@@ -45,10 +45,15 @@ def benchmark_varying_initial_state(
     dims; the others from ``x0_template``, zeros by default). Returns the
     ``ClosedLoopResult`` of the batch, lanes in x01-major order
     (len(x01)·len(x02) of them), and the initial states [B, nx].
-    ``device=None`` means the card, ``dtype=None`` float32."""
+    ``device=None`` means the card, ``dtype=None`` float32. With a ``mesh``
+    every rank builds the whole grid on the mesh's device and rolls out its
+    own lanes: the result and the initial states are ``Shard(0)`` DTensors
+    (``parallel.make_batched_closed_loop``)."""
+    from control_box_rst_tpu_torch.parallel.mesh import mesh_device, shard_batch
     from control_box_rst_tpu_torch.parallel.sharded_solve import make_batched_closed_loop
 
-    device, dtype = resolve_device(device), resolve_dtype(dtype)
+    device = resolve_device(device) if mesh is None else mesh_device(mesh)
+    dtype = resolve_dtype(dtype)
     kw = dict(dtype=dtype, device=device)
     nx = plant.system.nx
     g1, g2 = torch.meshgrid(
@@ -60,6 +65,8 @@ def benchmark_varying_initial_state(
     x0s[:, 1] = g2.reshape(-1)
     roll = make_batched_closed_loop(
         controller, plant, T_steps, dt, mesh=mesh, device=device, dtype=dtype)
+    if mesh is not None:
+        x0s = shard_batch(x0s, mesh)
     return roll(x0s, generator), x0s
 
 

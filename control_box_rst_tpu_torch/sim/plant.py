@@ -6,11 +6,14 @@ integrating the system dynamics under a zero-order-hold input (or applying a
 discrete-time map), and reads an output from the state. Disturbances are
 additive Gaussian noise drawn from an explicit ``torch.Generator`` (where the
 reference splits ``jax.random`` keys): input noise is drawn before state
-noise, and a noisy plant without a generator raises.
+noise, and a noisy plant without a generator raises. A plant whose lanes
+are a window of a larger batch (one rank's shard under a mesh) draws the
+noise of the whole batch and keeps its window (``with_lane_window``), so a
+lane's noise does not depend on how the batch is split.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -21,16 +24,26 @@ from control_box_rst_tpu_torch.utils.tree import plain_dataclass
 
 @plain_dataclass
 class GaussianNoise:
-    """Additive Gaussian disturbance: mean + std · N(0, 1)."""
+    """Additive Gaussian disturbance: mean + std · N(0, 1).
+
+    ``lanes = (offset, total)``: ``like``'s lanes are lanes offset … offset +
+    B − 1 of a batch of ``total``; the draw is the whole batch's, cut to
+    them."""
 
     mean: float = 0.0
     std: float = 0.0
+    lanes: Optional[Tuple[int, int]] = None
 
     def __call__(self, generator: torch.Generator, like: torch.Tensor) -> torch.Tensor:
         """A draw of ``like``'s shape, dtype and device."""
         if generator is None:
             raise ValueError("a noisy plant draws from an explicit torch.Generator")
-        z = torch.randn(like.shape, generator=generator, dtype=like.dtype, device=like.device)
+        shape = like.shape
+        if self.lanes is not None:
+            shape = (self.lanes[1],) + tuple(like.shape[1:])
+        z = torch.randn(shape, generator=generator, dtype=like.dtype, device=like.device)
+        if self.lanes is not None:
+            z = z[self.lanes[0]:self.lanes[0] + like.shape[0]]
         return self.mean + self.std * z
 
 
@@ -58,6 +71,14 @@ class SimulatedPlant:
     @property
     def nx(self) -> int:
         return self.system.nx
+
+    def with_lane_window(self, offset: int, total: int) -> "SimulatedPlant":
+        """This plant for lanes offset … of a batch of ``total``: each noise
+        draws the whole batch's and keeps those lanes."""
+        return self.replace(**{
+            name: getattr(self, name).replace(lanes=(offset, total))
+            for name in ("state_noise", "output_noise", "input_noise")
+            if getattr(self, name) is not None})
 
     @property
     def ny(self) -> int:

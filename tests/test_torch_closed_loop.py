@@ -427,9 +427,11 @@ def test_noise_mean_and_std_in_distribution():
 
 
 def test_what_is_not_ported_raises_by_name():
-    """The mesh still raises by name; ``solver='ip'`` (the constrained
-    slice) and the Kalman observer (the LQR family) are ported: the one
-    builds its default settings, the other its gain."""
+    """Nothing is left unported here: the mesh refuses the CPU unless asked
+    (``make_mesh()`` without a card raises, ``device_type="cpu"`` builds the
+    one-rank mesh); ``solver='ip'`` (the constrained slice) and the Kalman
+    observer (the LQR family) are ported: the one builds its default
+    settings, the other its gain."""
     from control_box_rst_tpu_torch.solvers import IPConfig
 
     ocp, cfg = entry.flagship(N=4, device="cpu")
@@ -441,10 +443,22 @@ def test_what_is_not_ported_raises_by_name():
         torch.eye(2, dtype=torch.float64), torch.zeros((2, 1), dtype=torch.float64),
         torch.eye(2, dtype=torch.float64))
     assert obs.L.shape == (2, 2)
-    ctrl = PredictiveController(**kw)
-    plant = SimulatedPlant(system=DoubleIntegratorContinuous())
-    with pytest.raises(NotImplementedError, match="slice G"):
-        make_batched_closed_loop(ctrl, plant, 2, 0.1, mesh=object(), device="cpu")
+    import torch.distributed as dist
+
+    from control_box_rst_tpu_torch.parallel import make_mesh
+
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_mesh()
+    try:
+        mesh = make_mesh(device_type="cpu")
+        assert mesh.size() == 1 and mesh.device_type == "cpu"
+        ctrl = PredictiveController(**kw)
+        plant = SimulatedPlant(system=DoubleIntegratorContinuous())
+        res = make_batched_closed_loop(ctrl, plant, 1, 0.1, mesh=mesh)(np.zeros((2, 2)))
+        assert tuple(res.u.shape) == (2, 1, 1) and res.u.to_local().shape[0] == 2
+    finally:
+        dist.destroy_process_group()
 
 
 def test_closed_loop_entry_points_refuse_the_cpu_unless_asked():

@@ -74,7 +74,7 @@ def test_every_listed_module_exists():
         "solvers/simple_nlp.py",
         "ops/btridiag_cr.py", "ops/matrix_eq.py", "control/classic.py",
         "control/dual_mode.py", "sim/observer.py",
-        "parallel/sharded_solve.py", "entry.py", "convert.py",
+        "parallel/sharded_solve.py", "parallel/mesh.py", "entry.py", "convert.py",
         "core/factory.py", "core/signals.py", "core/export.py", "core/time_series.py",
         "core/reference.py", "core/config.py", "sim/environment.py", "master.py",
         "models/outputs.py", "models/filters.py", "ops/integrators.py",
@@ -185,8 +185,25 @@ def test_entry_points_refuse_the_cpu_unless_asked():
     assert resolve_device("cpu").type == "cpu"
     with pytest.raises(ValueError):
         resolve_dtype(torch.float16)
-    with pytest.raises(NotImplementedError):
-        make_batched_solver(ocp, cfg, device="cpu", mesh=object())
+    _assert_the_mesh_refuses_the_cpu_unless_asked()
+
+
+def _assert_the_mesh_refuses_the_cpu_unless_asked():
+    """``make_mesh()`` without a card raises; ``make_mesh(device_type="cpu")``
+    builds the one-rank mesh (its process group is taken down again)."""
+    import torch.distributed as dist
+
+    from control_box_rst_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()
+    assert not dist.is_initialized()
+    try:
+        mesh = make_mesh(device_type="cpu")
+        assert mesh.size() == 1 and mesh.device_type == "cpu"
+        assert mesh.mesh_dim_names == ("batch",)
+    finally:
+        dist.destroy_process_group()
 
 
 # a one-step closed loop of the config loader (the CPU run takes ~1 s)
@@ -246,10 +263,12 @@ def test_constructors_refuse_the_cpu_unless_asked():
 
 
 def test_status_codes_match_the_reference():
-    from control_box_rst_tpu.core.types import SolverStatus as Ref
-    from control_box_rst_tpu_torch.core.types import SolverStatus
+    from control_box_rst_tpu.core import types as ref
+    from control_box_rst_tpu_torch.core import types
 
-    assert {s.name: int(s) for s in SolverStatus} == {s.name: int(s) for s in Ref}
+    for name in ("SolverStatus", "ControllerStatus"):
+        got, want = getattr(types, name), getattr(ref, name)
+        assert {s.name: int(s) for s in got} == {s.name: int(s) for s in want}, name
 
 
 def test_entry_runs_on_cpu_when_asked():
