@@ -2152,18 +2152,24 @@ def profile_record(prof, wall_ms, top: int = 14):
     """What a finished ``torch.profiler`` run saw over ``wall_ms`` of wall
     time: device time by kernel name, the hand-written kernels launch by
     launch (kernel-alone times), and the share of the wall time the device
-    sat idle."""
+    sat idle. The program's layer spans (``record_function`` ranges) show on
+    the device's timeline as user annotations: they are not device work and
+    are left out."""
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def device_work(e):
+        return e.device_type == cuda and not getattr(e, "is_user_annotation", False)
+
     rows = [
         (e.key, e.device_time_total / 1e3, e.count)
-        for e in prof.key_averages() if e.device_time_total > 0
-        and e.device_type == torch.autograd.DeviceType.CUDA
+        for e in prof.key_averages() if e.device_time_total > 0 and device_work(e)
     ]
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
     # the hand-written kernels launch by launch, in launch order
     ours = {}
     for e in sorted(prof.events(), key=lambda e: e.time_range.start):
-        if e.device_type == torch.autograd.DeviceType.CUDA and any(
+        if device_work(e) and any(
                 tag in e.name for tag in ("boxqp_solve", "admm_round", "btridiag_factor_solve")):
             ours.setdefault(e.name.split("(")[0][:60], []).append(e.device_time_total / 1e3)
     own = {

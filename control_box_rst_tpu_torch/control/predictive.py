@@ -51,6 +51,7 @@ from control_box_rst_tpu_torch.solvers.sqp import (
     sqp_solve,
 )
 from control_box_rst_tpu_torch.utils.precision import resolve_device, resolve_dtype
+from control_box_rst_tpu_torch.utils.profiling import span
 from control_box_rst_tpu_torch.utils.tree import plain_dataclass
 
 
@@ -256,6 +257,7 @@ class PredictiveController(Controller):
             feas_prev=torch.zeros(lead, **kw),
         )
 
+    @span("controller.step")
     def step(self, carry: MPCCarry, x: torch.Tensor, t, dt) -> tuple:
         """One MPC step of every lane from the measured states x [B, nx]."""
         ocp = self.ocp.replace(bc=self.ocp.bc.replace(x0=x))

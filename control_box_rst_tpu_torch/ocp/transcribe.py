@@ -71,6 +71,7 @@ from control_box_rst_tpu_torch.ops.collocation import (
 )
 from control_box_rst_tpu_torch.ops.integrators import make_integrator
 from control_box_rst_tpu_torch.utils.precision import resolve_device, resolve_dtype
+from control_box_rst_tpu_torch.utils.profiling import span
 from control_box_rst_tpu_torch.utils.tree import plain_dataclass, tree_to
 
 _COST_INTEGRATIONS = ("left_sum", "trapezoidal", "hermite_simpson",
@@ -310,6 +311,7 @@ class TranscribedOCP:
             rows.append(utie * (w1[..., nx:nx + nu] - u))
         return torch.cat(rows, dim=-1) if len(rows) > 1 else rows[0]
 
+    @span("transcription.interval_residuals")
     def interval_residuals(self, W: torch.Tensor) -> torch.Tensor:
         """[..., N, nc] all interval equality rows."""
         W = self.with_mask_lanes(W)
@@ -322,6 +324,7 @@ class TranscribedOCP:
         """[..., N, nx] dynamics defects only (diagnostics / tests)."""
         return self.interval_residuals(self.pack(traj))[..., : self.nx]
 
+    @span("transcription.interval_jacobians")
     def interval_jacobians(self, W: torch.Tensor):
         """J [..., N, nc, nz], K [..., N, nc, nz], c [..., N, nc] — exact,
         forward-mode AD per interval vmapped over stages (and lanes)."""
@@ -387,6 +390,7 @@ class TranscribedOCP:
             val = dt * c.stage(x, u, dt, xref, uref)
         return m * val
 
+    @span("transcription.objective_from_W")
     def objective_from_W(self, W: torch.Tensor) -> torch.Tensor:
         xref, uref = self.refs.xref, self.refs.uref
         stage_sum = self._stage_term(
@@ -399,6 +403,7 @@ class TranscribedOCP:
     def objective(self, traj: Trajectory) -> torch.Tensor:
         return self.objective_from_W(self.pack(traj))
 
+    @span("transcription.cost_gradient")
     def cost_gradient(self, W: torch.Tensor) -> torch.Tensor:
         """Exact gradient [..., N+1, nz] of every lane's objective (a per-lane
         mask gives W its lanes)."""
@@ -409,6 +414,7 @@ class TranscribedOCP:
             (grad,) = torch.autograd.grad(total, Wg, allow_unused=True)
         return torch.zeros_like(W) if grad is None else grad
 
+    @span("transcription.cost_hessian_blocks")
     def cost_hessian_blocks(self, W: torch.Tensor) -> torch.Tensor:
         """Block-diagonal Hessian approximation Hd [..., N+1, nz, nz].
 

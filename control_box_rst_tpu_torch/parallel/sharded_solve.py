@@ -27,6 +27,7 @@ from control_box_rst_tpu_torch.solvers.sqp import (
     sqp_solve,
 )
 from control_box_rst_tpu_torch.utils.precision import resolve_device, resolve_dtype
+from control_box_rst_tpu_torch.utils.profiling import span
 from control_box_rst_tpu_torch.utils.tree import tree_to
 
 
@@ -71,6 +72,7 @@ def make_batched_solver(
         ocp, Trajectory.linear_interp(ocp.bc.x0, xf, N, nu, dt_init), cfg
     )
 
+    @span("entry.solve")
     def solve(x0s):
         x0s = torch.as_tensor(x0s).to(device=device, dtype=dtype)
         o = ocp.replace(bc=ocp.bc.replace(x0=x0s))
@@ -187,6 +189,7 @@ def make_batched_closed_loop(
     plant = tree_to(plant, device, dtype)
     observer = None if observer is None else tree_to(observer, device, dtype)
 
+    @span("entry.rollout")
     def run(x0s, generator, plant) -> ClosedLoopResult:
         x0s = torch.as_tensor(x0s).to(device=device, dtype=dtype)
         return run_closed_loop(plant, controller, x0s, T_steps, dt, observer=observer,

@@ -18,6 +18,7 @@ import torch
 
 from control_box_rst_tpu_torch.sim.observer import NoObserver
 from control_box_rst_tpu_torch.sim.plant import SimulatedPlant
+from control_box_rst_tpu_torch.utils.profiling import span
 
 
 class ClosedLoopResult(NamedTuple):
@@ -107,10 +108,11 @@ def run_closed_loop(
         ctrl_carry, out = controller.step(ctrl_carry, x_hat, t, dt)
         # failure → zero controls
         u = torch.where(out.ok[..., None], out.u, torch.zeros_like(out.u))
-        if apply_sequence_substeps <= 0:
-            x = plant.step(x, u, dt, generator)
-        else:
-            x = _apply_sequence(plant, x, out, dt, apply_sequence_substeps, generator)
+        with span("plant.step"):
+            if apply_sequence_substeps <= 0:
+                x = plant.step(x, u, dt, generator)
+            else:
+                x = _apply_sequence(plant, x, out, dt, apply_sequence_substeps, generator)
         xs.append(x)
         ys.append(y)
         xhats.append(x_hat)

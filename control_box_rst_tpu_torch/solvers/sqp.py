@@ -32,6 +32,7 @@ from control_box_rst_tpu_torch.solvers.stage_qp import (
     solve_stage_qp,
 )
 from control_box_rst_tpu_torch.utils.precision import check_precision_policy
+from control_box_rst_tpu_torch.utils.profiling import count, span
 from control_box_rst_tpu_torch.utils.tree import plain_dataclass
 
 
@@ -191,6 +192,7 @@ def hoist_structure(
     )
 
 
+@span("sqp.solve")
 def sqp_solve(
     ocp: TranscribedOCP,
     traj0: Trajectory,
@@ -284,6 +286,7 @@ def sqp_solve(
     empty_G = torch.zeros((N + 1, 0, nz), **kw)
     empty_g = torch.zeros((N + 1, 0), **kw)
     if one_shot:
+        count("sqp.lockstep_iters")
         per_qp_budget = cfg.qp.max_iter if cfg.qp.max_iter is not None else 200
         qp_cfg_os = cfg.qp.replace(
             max_iter=cfg.max_iter * per_qp_budget,
@@ -324,7 +327,16 @@ def sqp_solve(
     nu = torch.full(lead, cfg.merit_nu_init, **kw)
     it, stat, feas, done, qp_tot = it0, stat0, feas0, done0, qp_iters0
 
-    while bool(((it < cfg.max_iter) & ~done).any()):
+    trips = 0
+    while True:
+        more = ((it < cfg.max_iter) & ~done).any()
+        # the one wait of the host on the device in a lock-step iteration
+        with span("sqp.wait"):
+            more = bool(more)
+        if not more:
+            break
+        trips += 1
+        count("sqp.lockstep_iters")
         # ---- linearize (exact AD, all stages and lanes at once) ----
         if hoist_JK:
             Jm, Km = Jm_c, Km_c
@@ -357,38 +369,39 @@ def sqp_solve(
         delta = sol.delta * free
 
         # ---- ℓ1 merit line search (parallel candidates) ----
-        y_max = _amax2(sol.y_dyn.abs())
-        if ng:
-            y_max = torch.maximum(y_max, _amax2(sol.y_gen.abs()))
-        # ν tracks the current dual scale both ways: it must dominate the
-        # duals for the ℓ1 merit to be exact, but a ν stuck at the scale of
-        # the FIRST iterations' duals over-penalizes residual infeasibility
-        # near the solution; geometric decay forgets stale magnitudes.
-        nu_new = torch.maximum(1.2 * y_max + 1e-3, 0.5 * nu)
-        phi0, infeas0 = _merit(ocp, W, lb, ub, nu_new, free)
-        dirderiv = (grad * delta).sum(dim=(-2, -1)) - nu_new * infeas0
+        with span("sqp.line_search"):
+            y_max = _amax2(sol.y_dyn.abs())
+            if ng:
+                y_max = torch.maximum(y_max, _amax2(sol.y_gen.abs()))
+            # ν tracks the current dual scale both ways: it must dominate the
+            # duals for the ℓ1 merit to be exact, but a ν stuck at the scale of
+            # the FIRST iterations' duals over-penalizes residual infeasibility
+            # near the solution; geometric decay forgets stale magnitudes.
+            nu_new = torch.maximum(1.2 * y_max + 1e-3, 0.5 * nu)
+            phi0, infeas0 = _merit(ocp, W, lb, ub, nu_new, free)
+            dirderiv = (grad * delta).sum(dim=(-2, -1)) - nu_new * infeas0
 
-        # candidates in a new leading dim: [n_cand, *lead, N+1, nz]
-        a_w = alphas.reshape((-1,) + (1,) * (len(lead) + 2))
-        a_l = alphas.reshape((-1,) + (1,) * len(lead))
-        phis, infeas_c = _merit(ocp, W + a_w * delta, lb, ub, nu_new, free)
-        ok = phis <= phi0 + cfg.ls_c1 * a_l * torch.clamp(dirderiv, max=0.0)
-        any_ok = ok.any(dim=0)
-        idx = ok.to(torch.int8).argmax(dim=0)  # first True = largest α
-        # Maratos watchdog: accept the FULL step whenever the merit test
-        # fails across the board yet the trial point stays essentially
-        # feasible, i.e. the rejection is second-order noise, not a real
-        # feasibility loss.
-        rescue = (
-            (~any_ok)
-            & (infeas0 <= cfg.rescue_infeas_max)
-            & (infeas_c[0] <= torch.clamp(10.0 * infeas0, min=tol_feas))
-        )
-        alpha = torch.where(
-            any_ok, alphas[idx], torch.where(rescue, alphas[0], alphas[-1])
-        )
-        step = alpha[..., None, None] * delta
-        W_new = W + step
+            # candidates in a new leading dim: [n_cand, *lead, N+1, nz]
+            a_w = alphas.reshape((-1,) + (1,) * (len(lead) + 2))
+            a_l = alphas.reshape((-1,) + (1,) * len(lead))
+            phis, infeas_c = _merit(ocp, W + a_w * delta, lb, ub, nu_new, free)
+            ok = phis <= phi0 + cfg.ls_c1 * a_l * torch.clamp(dirderiv, max=0.0)
+            any_ok = ok.any(dim=0)
+            idx = ok.to(torch.int8).argmax(dim=0)  # first True = largest α
+            # Maratos watchdog: accept the FULL step whenever the merit test
+            # fails across the board yet the trial point stays essentially
+            # feasible, i.e. the rejection is second-order noise, not a real
+            # feasibility loss.
+            rescue = (
+                (~any_ok)
+                & (infeas0 <= cfg.rescue_infeas_max)
+                & (infeas_c[0] <= torch.clamp(10.0 * infeas0, min=tol_feas))
+            )
+            alpha = torch.where(
+                any_ok, alphas[idx], torch.where(rescue, alphas[0], alphas[-1])
+            )
+            step = alpha[..., None, None] * delta
+            W_new = W + step
 
         # ---- KKT residuals (at current linearization, QP multipliers) ----
         grad_lag = _grad_lagrangian(gm, Jm, Km, sol.y_dyn, sol.y_box, free)
@@ -423,6 +436,9 @@ def sqp_solve(
         torch.full_like(it, int(SolverStatus.CONVERGED)),
         torch.full_like(it, int(SolverStatus.EARLY_TERMINATED)),
     )
+    # useful lane iterations against the slots lock step gave the lanes
+    count("sqp.lane_iters", it)
+    count("sqp.lane_slots", math.prod(lead) * (int(one_shot) + trips))
     return SQPResult(
         traj=ocp.unpack(W), W=W, y_dyn=y_dyn, y_gen=y_gen, y_box=y_box,
         iterations=it, objective=ocp.objective_from_W(W),

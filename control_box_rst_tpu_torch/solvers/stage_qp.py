@@ -42,6 +42,7 @@ from control_box_rst_tpu_torch.ops.btridiag import interval_to_stage
 from control_box_rst_tpu_torch.ops.cuda import admm_kernel
 from control_box_rst_tpu_torch.ops.smallmat import mm_small_tn, mv_small, mv_small_t
 from control_box_rst_tpu_torch.utils.precision import resolve_device, resolve_dtype
+from control_box_rst_tpu_torch.utils.profiling import span
 from control_box_rst_tpu_torch.utils.tree import plain_dataclass
 
 
@@ -186,6 +187,7 @@ def _expand_lead(a: torch.Tensor, lead, n_trailing: int) -> torch.Tensor:
     return a.expand(tuple(lead) + tuple(a.shape[a.dim() - n_trailing:]))
 
 
+@span("stage_qp.solve")
 def solve_stage_qp(
     qp: StageQP,
     cfg: QPConfig,
@@ -254,11 +256,12 @@ def solve_stage_qp(
             return a.reshape((B,) + tuple(a.shape[len(lead):]))
 
         rho0 = torch.full((B,), cfg.rho, dtype=dtype, device=dev)
-        xo, zbo, ydo, ybo, pr, dr, it = fused_solve(
-            flat(qp.Hd, 3), flat(qp.J, 3), flat(qp.K, 3), flat(qp.g, 2),
-            flat(qp.c, 2), flat(qp.dlb, 2), flat(qp.dub, 2), rho0,
-            flat(x, 2), flat(z_b, 2), flat(y_d, 2), flat(y_b, 2),
-        )
+        with span("k1.launch"):
+            xo, zbo, ydo, ybo, pr, dr, it = fused_solve(
+                flat(qp.Hd, 3), flat(qp.J, 3), flat(qp.K, 3), flat(qp.g, 2),
+                flat(qp.c, 2), flat(qp.dlb, 2), flat(qp.dub, 2), rho0,
+                flat(x, 2), flat(z_b, 2), flat(y_d, 2), flat(y_b, 2),
+            )
         un = lambda a: a.reshape(tuple(lead) + tuple(a.shape[1:]))
         return QPSolution(
             delta=un(xo), y_dyn=un(ydo), y_gen=y_g, y_box=un(ybo),
