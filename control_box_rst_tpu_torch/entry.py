@@ -61,7 +61,13 @@ from control_box_rst_tpu_torch.utils.precision import resolve_device, resolve_dt
 # float32 interior-point settings, picked before the first chip run: the first
 # candidate under which the JAX package's float32 solve and the port's own
 # float32 solve of the first 64 lanes both converge (>= 0.99) and both stay
-# within 1e-3 of the float64 oracle (tools/ip_calibration.py; PERF.md §2)
+# within 1e-3 of the float64 oracle (tools/ip_calibration.py; PERF.md §2).
+# A higher cap buys next to nothing on config 1: of 589,824 lanes of the
+# benchmark's sweep (H100), all but two that converge do so within 70
+# iterations (those two at 103 and 213), and the 622 that do not (0.105 %;
+# position and velocity of one sign, |x0|∞ ≥ 0.69, controls on the bound)
+# stall with μ at its floor and the stationarity residual at 7e-6 to 2e-5,
+# the float32 floor, through 2000 iterations (PERF.md §7)
 IP_F32_CONFIG1 = dict(tol=7e-6, max_iter=80)
 IP_F32_CONSTRAINED_DI = dict(tol=1e-5, max_iter=200)
 # float32 SQP settings of Van der Pol, configs 2 and 6: the stationarity
@@ -122,8 +128,8 @@ def flagship_lm(N: int = 50, dtype=None, device=None):
 
 def flagship_ip(N: int = 50, dtype=None, device=None):
     """The config-1 OCP of ``flagship`` with the interior-point backend's
-    float32 settings (``parallel.make_batched_ip_solver`` takes both):
-    ``IP_F32_CONFIG1``."""
+    float32 settings (``parallel.make_batched_solver`` takes both, as does
+    ``parallel.make_batched_ip_solver``): ``IP_F32_CONFIG1``."""
     from control_box_rst_tpu_torch.solvers import IPConfig
 
     ocp, _ = flagship(N, dtype=dtype, device=device)

@@ -9,7 +9,7 @@ DTensors over the mesh.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -42,13 +42,17 @@ def _resolve_device(device, mesh) -> torch.device:
 
 def make_batched_solver(
     ocp: TranscribedOCP,
-    cfg: Optional[SQPConfig] = None,
+    cfg: Optional[Union[SQPConfig, IPConfig]] = None,
     dt_init: float = 0.1,
     mesh=None,
     device=None,
     dtype=None,
 ):
     """Returns fn x0s [B, nx] → (U [B, N, nu], objective, status, iterations).
+
+    The backend is the config's: an ``SQPConfig`` (or ``None``) solves by SQP,
+    an ``IPConfig`` by the interior-point solve of ``make_batched_ip_solver``
+    (one OCP, the solver plugged in).
 
     ``device=None`` means the card and raises when there is none; the CPU has
     to be asked for (``device="cpu"``). ``dtype=None`` means float32. The OCP
@@ -57,8 +61,15 @@ def make_batched_solver(
 
     With a ``mesh`` the device is the mesh's; x0s may also be a ``Shard(0)``
     DTensor (a whole batch is sharded first), each rank solves its own lanes,
-    and the four results are ``Shard(0)`` DTensors over the mesh.
+    and the four results are ``Shard(0)`` DTensors over the mesh. The
+    interior-point backend has no sharded path and raises under a mesh.
     """
+    if isinstance(cfg, IPConfig):
+        if mesh is not None:
+            raise ValueError("make_batched_solver: the interior-point backend (IPConfig) "
+                             "has no mesh= path")
+        return span("entry.solve")(
+            make_batched_ip_solver(ocp, cfg, dt_init=dt_init, device=device, dtype=dtype))
     device = _resolve_device(device, mesh)
     dtype = resolve_dtype(dtype)
     # fused QP solve: float32 box-only QP on the card — the kernel's envelope

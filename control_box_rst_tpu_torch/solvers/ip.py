@@ -27,6 +27,15 @@ lock step while any lane's condition holds, and a lane whose condition is
 false is frozen whole (its counter too), as a vmapped ``while_loop`` freezes
 it. Equality general rows (rl == ru) and box rows with lb == ub on a free
 variable are relaxed by a dtype-scaled ε, so every slack keeps an interior.
+
+Layer spans and counters (``utils/profiling.py``; they record only while a
+profiler session records): ``ip.solve`` around the whole solve, ``ip.newton``
+(the condensed Hessian, the Schur system and the back-substitution) with
+``k4.launch`` (the block-tridiagonal solve's call) inside it,
+``ip.line_search`` (the merits and the Armijo choice), ``ip.wait`` (the loop
+test's one wait on the device); ``ip.lockstep_iters`` per loop trip, and at
+return ``ip.lane_iters`` (Σ of the lanes' own iterations) and
+``ip.lane_slots`` (lanes × lock-step iterations).
 """
 from __future__ import annotations
 
@@ -49,6 +58,7 @@ from control_box_rst_tpu_torch.ops.smallmat import (
 )
 from control_box_rst_tpu_torch.solvers.sqp import _psd_clamp
 from control_box_rst_tpu_torch.utils.precision import check_precision_policy
+from control_box_rst_tpu_torch.utils.profiling import count, span
 from control_box_rst_tpu_torch.utils.tree import plain_dataclass
 
 
@@ -129,6 +139,7 @@ def _sum2(a: torch.Tensor) -> torch.Tensor:
     return a.sum(dim=(-2, -1))
 
 
+@span("ip.solve")
 def ip_solve(
     ocp: TranscribedOCP,
     traj0: Trajectory,
@@ -298,39 +309,41 @@ def ip_solve(
             rs_bar = -yg - where0(msL, mu_w / dLs) + where0(msU, mu_w / dUs)
             rg = r - S
 
-        # ---- condensed stage Hessian H_hat and its inverse ----
-        H_hat = (Hm + torch.diag_embed(sig_w * free) + reg_p * eye_nz
-                 + pin[:, :, None] * pin[:, None, :] * eye_nz)
-        if ng:
-            GmT = Gm.transpose(-1, -2)
-            H_hat = H_hat + mm_small_nt(GmT * sig_s[..., None, :], GmT)
-        Hinv = inv_spd_small(H_hat)
-        rhs1 = -rW_bar
-        if ng:
-            rhs1 = rhs1 - mv_small_t(Gm, sig_s * rg + rs_bar) * free
+        with span("ip.newton"):
+            # ---- condensed stage Hessian H_hat and its inverse ----
+            H_hat = (Hm + torch.diag_embed(sig_w * free) + reg_p * eye_nz
+                     + pin[:, :, None] * pin[:, None, :] * eye_nz)
+            if ng:
+                GmT = Gm.transpose(-1, -2)
+                H_hat = H_hat + mm_small_nt(GmT * sig_s[..., None, :], GmT)
+            Hinv = inv_spd_small(H_hat)
+            rhs1 = -rW_bar
+            if ng:
+                rhs1 = rhs1 - mv_small_t(Gm, sig_s * rg + rs_bar) * free
 
-        # ---- Schur complement over the interval rows (block-tridiagonal) ----
-        JH = mm_small(Jm, Hinv[:, :-1])
-        KH = mm_small(Km, Hinv[:, 1:])
-        S_D = mm_small_nt(JH, Jm) + mm_small_nt(KH, Km) + reg_d * eye_nc
-        S_O = mm_small_nt(KH[:, :-1], Jm[..., 1:, :, :])
-        Hr = mv_small(Hinv, rhs1)
-        rhs_y = mv_small(Jm, Hr[:, :-1]) + mv_small(Km, Hr[:, 1:]) + c
-        dy = btridiag_factor_solve(S_D, S_O, rhs_y, inplace=inplace)
+            # ---- Schur complement over the interval rows (block-tridiagonal) ----
+            JH = mm_small(Jm, Hinv[:, :-1])
+            KH = mm_small(Km, Hinv[:, 1:])
+            S_D = mm_small_nt(JH, Jm) + mm_small_nt(KH, Km) + reg_d * eye_nc
+            S_O = mm_small_nt(KH[:, :-1], Jm[..., 1:, :, :])
+            Hr = mv_small(Hinv, rhs1)
+            rhs_y = mv_small(Jm, Hr[:, :-1]) + mv_small(Km, Hr[:, 1:]) + c
+            with span("k4.launch"):
+                dy = btridiag_factor_solve(S_D, S_O, rhs_y, inplace=inplace)
 
-        # ---- back-substitute ΔW, Δy_gen, Δs, Δz ----
-        AtDy = interval_to_stage(mv_small_t(Jm, dy), mv_small_t(Km, dy))
-        dW = mv_small(Hinv, rhs1 - AtDy) * free
-        if ng:
-            dyg = sig_s * (mv_small(Gm, dW) + rg) + rs_bar
-            dS = (dyg - rs_bar) / sig_s
-        else:
-            dyg = dS = torch.zeros_like(S)
-        dz_lw = where0(mwL, -z_lw + mu_w / dLw - (z_lw / dLw) * dW)
-        dz_uw = where0(mwU, -z_uw + mu_w / dUw + (z_uw / dUw) * dW)
-        if ng:
-            dz_ls = where0(msL, -z_ls + mu_w / dLs - (z_ls / dLs) * dS)
-            dz_us = where0(msU, -z_us + mu_w / dUs + (z_us / dUs) * dS)
+            # ---- back-substitute ΔW, Δy_gen, Δs, Δz ----
+            AtDy = interval_to_stage(mv_small_t(Jm, dy), mv_small_t(Km, dy))
+            dW = mv_small(Hinv, rhs1 - AtDy) * free
+            if ng:
+                dyg = sig_s * (mv_small(Gm, dW) + rg) + rs_bar
+                dS = (dyg - rs_bar) / sig_s
+            else:
+                dyg = dS = torch.zeros_like(S)
+            dz_lw = where0(mwL, -z_lw + mu_w / dLw - (z_lw / dLw) * dW)
+            dz_uw = where0(mwU, -z_uw + mu_w / dUw + (z_uw / dUw) * dW)
+            if ng:
+                dz_ls = where0(msL, -z_ls + mu_w / dLs - (z_ls / dLs) * dS)
+                dz_us = where0(msU, -z_us + mu_w / dUs + (z_us / dUs) * dS)
 
         # ---- fraction-to-boundary step limits ----
         tau = _lanes(torch.clamp(1.0 - mu, min=cfg.tau_min), W)
@@ -351,24 +364,25 @@ def ip_solve(
         a_z = torch.clamp(a_z, 0.0, 1.0)
 
         # ---- backtracking Armijo on the barrier ℓ1 merit ----
-        y_max = _amax2((dy + y).abs())
-        if ng:
-            y_max = torch.maximum(y_max, _amax2((yg + dyg).abs()))
-        nu_new = torch.maximum(nu, 1.2 * y_max + 1e-3)
-        phi0, infeas0 = barrier_merit(W, S, mu, nu_new)
-        # directional derivative of the smooth part f − μ·Σ logs along (ΔW, Δs)
-        dlogs = _sum2(where0(mwL, dW / dLw)) - _sum2(where0(mwU, dW / dUw))
-        if ng:
-            dlogs = dlogs + _sum2(where0(msL, dS / dLs)) - _sum2(where0(msU, dS / dUs))
-        dirderiv = _sum2(grad * dW) - mu * dlogs - nu_new * infeas0
-        # the candidates in a leading dim: [n_cand, B, ...]
-        steps = a_p * backtracks[:, None]
-        st = steps[..., None, None]
-        phis, _ = barrier_merit(W + st * dW, S + st * dS, mu, nu_new)
-        armijo = phis <= phi0 + cfg.ls_c1 * steps * torch.clamp(dirderiv, max=0.0)
-        any_ok = armijo.any(dim=0)
-        idx = armijo.to(torch.int8).argmax(dim=0)  # first True = largest step
-        alpha = a_p * torch.where(any_ok, backtracks[idx], backtracks[-1])
+        with span("ip.line_search"):
+            y_max = _amax2((dy + y).abs())
+            if ng:
+                y_max = torch.maximum(y_max, _amax2((yg + dyg).abs()))
+            nu_new = torch.maximum(nu, 1.2 * y_max + 1e-3)
+            phi0, infeas0 = barrier_merit(W, S, mu, nu_new)
+            # directional derivative of the smooth part f − μ·Σ logs along (ΔW, Δs)
+            dlogs = _sum2(where0(mwL, dW / dLw)) - _sum2(where0(mwU, dW / dUw))
+            if ng:
+                dlogs = dlogs + _sum2(where0(msL, dS / dLs)) - _sum2(where0(msU, dS / dUs))
+            dirderiv = _sum2(grad * dW) - mu * dlogs - nu_new * infeas0
+            # the candidates in a leading dim: [n_cand, B, ...]
+            steps = a_p * backtracks[:, None]
+            st = steps[..., None, None]
+            phis, _ = barrier_merit(W + st * dW, S + st * dS, mu, nu_new)
+            armijo = phis <= phi0 + cfg.ls_c1 * steps * torch.clamp(dirderiv, max=0.0)
+            any_ok = armijo.any(dim=0)
+            idx = armijo.to(torch.int8).argmax(dim=0)  # first True = largest step
+            alpha = a_p * torch.where(any_ok, backtracks[idx], backtracks[-1])
         al = _lanes(alpha, W)
         az = _lanes(a_z, W)
 
@@ -447,10 +461,17 @@ def ip_solve(
         z_lw0, z_uw0, z_ls0, z_us0, mu0, torch.full((B,), cfg.merit_nu_init, **kw),
         torch.zeros((B,), dtype=torch.int32, device=dev), inf, inf, inf, false, false,
     )
+    trips = 0
     while True:
         active = (state.it < cfg.max_iter) & ~state.done & ~state.diverged
-        if not bool(active.any()):
+        more = active.any()
+        # the one wait of the host on the device in a lock-step iteration
+        with span("ip.wait"):
+            more = bool(more)
+        if not more:
             break
+        trips += 1
+        count("ip.lockstep_iters")
         new = iteration(state)
         state = _State(*(torch.where(_lanes(active, n), n, o) for n, o in zip(new, state)))
 
@@ -458,6 +479,9 @@ def ip_solve(
         state.diverged, int(SolverStatus.INFEASIBLE),
         torch.where(state.done, int(SolverStatus.CONVERGED), int(SolverStatus.EARLY_TERMINATED)),
     ).to(torch.int32)
+    # useful lane iterations against the slots lock step gave the lanes
+    count("ip.lane_iters", state.it)
+    count("ip.lane_slots", B * trips)
     un = lambda a: a.reshape(lead + tuple(a.shape[1:]))
     W = un(state.W)
     return IPResult(
