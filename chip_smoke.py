@@ -116,19 +116,32 @@ Phases
   7 closed_loop  config 5 at B=4096, T=20 (``entry.rollouts``); gates (the
              reference's scenario benchmark): usable-step fraction >= 0.99,
              max |u_fused - u_plain| <= 1e-3 on the same batch (plain =
-             backend 'plain', no kernel), the box-QP kernel launched once per
-             step for the warm-started one-shot solve and once per lock-step
-             outer SQP iteration (launches == the sum over steps of the
-             lock-step SQP iterations > 0, one-shot calls counted apart), Hd/J/K
-             hoisted once and passed as one shared copy; the kernel against
-             its plain version on the one-shot QPs of step 5 (shifted warm
-             start, nonzero warm duals; as close to the float64 plain version
-             as the float32 plain version, rounds within one); rollouts/s and
-             MPC steps/s (best of 3 batches), outer SQP iterations per step,
-             mean |x_T|, peak device memory, p50 / p99 of one controller step
-             at B=1; then 5 steps under the LM controller (LMConfig(max_iter=
-             60)): the in-place block-tridiagonal kernel launched once per
-             lock-step LM iteration, every u finite, usable fraction reported
+             backend 'plain', no kernel); ``make_batched_closed_loop`` runs
+             the step graphs there (``sim/step_graphs.py``): in a
+             torch.profiler trace of its run the box-QP kernel (shared-memory
+             route only) launched once per step for the warm-started one-shot
+             solve and once per lock-step outer SQP iteration, at least once
+             (launches == the sum over steps of max(lock-step SQP
+             iterations, 2) > 0 == the port's ``sqp.lockstep_iters``), one
+             replayed step a step; the kernel against its plain version on
+             the one-shot QPs of step 5 of the same graphs (shifted warm
+             start, nonzero warm duals, one shared copy of Hd/J/K; as close to
+             the float64 plain version as the float32 plain version, rounds
+             within one); rollouts/s and MPC steps/s (best of 3 batches),
+             outer SQP iterations per step, mean |x_T|, peak device memory,
+             p50 / p99 of one controller step at B=1; then 5 steps under the
+             LM controller (LMConfig(max_iter=60)): the in-place
+             block-tridiagonal kernel launched once per lock-step LM
+             iteration, every u finite, usable fraction reported
+  7b closed_loop_graph  the step graphs against the eager loop on three
+             seeds of the benchmark's ``rollouts_b4096_t20`` initial states
+             and at B = 1 and 1000: x_true, u, ok and every info tensor equal
+             bit for bit; in a torch.profiler trace of each, K1 launches ==
+             the lock-step SQP iterations (the graphs: one-shot and one loop
+             trip every step, and the trips after them), replayed steps and
+             trips after the first graph from the port's counters; capture
+             s, ms per batch both ways (``--closed-loop-only``: the build,
+             phases 7 and 7b and the master's config-1 batch, their lines)
   8 nonuniform  config 4 (``entry.nonuniform_ms_timeopt``, N=10, Kst=11) at
              B=4096 by ``sqp_solve``: converged >= 0.99, max |T - 2 sqrt(d)|
              <= 1e-3 on every lane (T = sum of the dt_k), K1 launches == the
@@ -281,7 +294,7 @@ batch, with its device idle share and the eager kernels per MPC step, and a
 ``{"profile_nonuniform": ...}`` line: one traced config-4 batch and 5 traced
 steps of its adaptive rollouts), then a ``{"main": ...}`` line, a ``{"lm":
 ...}`` line, a ``{"nonlinear": ...}`` line, a ``{"closed_loop": ...}`` line,
-a ``{"nonuniform": ...}`` line, an ``{"ip": ...}`` line (``--profile``
+a ``{"closed_loop_graph": ...}`` line, a ``{"nonuniform": ...}`` line, an ``{"ip": ...}`` line (``--profile``
 adds ``profile_ip``: one traced config-1 and constrained-DI IP batch, eager
 kernels per IP iteration, and ``profile_grids``: one traced batch of each
 path of phases 10-12), ``{"grids": ...}``, ``{"hs_closed_loop": ...}``,
@@ -345,6 +358,8 @@ CL_BATCH = 4096    # rollouts of the closed-loop path (config 5)
 CL_TRIALS = 3      # closed loop: best of CL_TRIALS rollout batches
 CL_CHECK_STEP = 5  # the MPC step whose warm-started one-shot QPs K1 is held to
 CL_LM_STEPS = 5    # steps of the closed loop under the LM controller
+CLG_SEEDS = (11, 12, 13)  # seeds of rollouts_b4096_t20's initial states, step graphs vs eager
+CLG_TRIALS = 3     # step graphs vs eager: best of CLG_TRIALS rollout batches each way
 NU_BATCH = 4096    # lanes, and rollouts, of config 4
 NU_TRIALS = 3      # config 4 open loop: best of NU_TRIALS single batches
 NU_CL_TRIALS = 1   # config 4 closed loop: best of the counted and NU_CL_TRIALS more batches
@@ -1737,6 +1752,29 @@ def phase_main(ocp, cfg, x0s_np, trials: int, reps: int):
     )
 
 
+def traced(run):
+    """``run()`` under torch.profiler (CPU and CUDA), the card idle before
+    it. A CUDA graph's replay runs no Python, so K1's wrapper does not see
+    its launches; the device trace does. Returns (the result, K1's launches
+    in the trace by kernel name, the port's counters of the session)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from control_box_rst_tpu_torch.utils.profiling import last_record
+
+    cuda = torch.autograd.DeviceType.CUDA
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = run()
+        torch.cuda.synchronize()
+    k1 = {}
+    for e in prof.events():
+        if e.device_type == cuda and not getattr(e, "is_user_annotation", False) \
+                and "boxqp_solve" in e.name:
+            name = e.name.split("(")[0][:60]
+            k1[name] = k1.get(name, 0) + 1
+    return out, k1, last_record().counters()
+
+
 def catch_boxqp_calls(ak, keep_call: int = -1):
     """Patch K1's wrapper to record, per call, whether it is a one-shot solve
     (the in-kernel KKT exit on: ``tol_stat`` > 0) and whether Hd/J/K reached
@@ -1818,13 +1856,17 @@ def closed_loop_step_kernel(args, kw, reps: int):
 
 def phase_closed_loop(x0s_np, trials: int, reps: int):
     """Config 5: B rollouts of T MPC steps of the config-1 OCP against the
-    simulated double integrator through ``make_batched_closed_loop``, every
+    simulated double integrator through ``make_batched_closed_loop``, which
+    replays them from the step graphs (``sim/step_graphs.py``): every
     step's warm-started one-shot QP and every lock-step outer SQP iteration
     through K1 with one shared copy of Hd/J/K. Gates (the reference's,
     ``bench_scaling.py``): usable-step fraction >= 0.99; max |u_fused -
-    u_plain| <= 1e-3 on the same batch (plain = ``backend='plain'``); K1
-    launches == sum over steps of (1 one-shot + the step's lock-step outer
-    iterations) > 0. Then K1 on the one-shot QPs of step CL_CHECK_STEP
+    u_plain| <= 1e-3 on the same batch (plain = ``backend='plain'``, the
+    eager loop). In the device trace of the run (``traced``): K1 launches,
+    all by its shared-memory kernel, == sum over steps of (1 one-shot + the
+    step's lock-step outer iterations, at least the one trip the graphs
+    always run) > 0 == the port's ``sqp.lockstep_iters``, T replayed steps.
+    Then K1 on the one-shot QPs of step CL_CHECK_STEP of the same graphs
     against its plain version, and the closed loop under the LM controller
     for CL_LM_STEPS steps (K4 once per lock-step LM iteration, finite u).
     Returns (K1 launches, K4 launches, record, record of K1 at the step's
@@ -1834,46 +1876,44 @@ def phase_closed_loop(x0s_np, trials: int, reps: int):
     from control_box_rst_tpu_torch.ops.cuda import admm_kernel as ak
     from control_box_rst_tpu_torch.ops.cuda import btridiag_kernel as bk
     from control_box_rst_tpu_torch.parallel import make_batched_closed_loop
+    from control_box_rst_tpu_torch.sim.step_graphs import StepGraphs, graph_engages
+    from control_box_rst_tpu_torch.utils.tree import tree_to
 
     ctrl, plant, T, dt = rollouts(N=50)  # device=None: the card
+    plant = tree_to(plant, "cuda", torch.float32)
     B = x0s_np.shape[0]
     x0s = torch.as_tensor(x0s_np, device="cuda")
     roll = make_batched_closed_loop(ctrl, plant, T, dt)
     if ctrl.sqp_cfg.qp.backend != "fused" or ctrl.hoisted.Jm is None or ctrl.hoisted.Jm.dim() != 3:
         raise AssertionError("closed loop: expected the fused backend and one hoisted J/K/Hd")
-    roll(x0s[:256])  # warm-up
+    if not graph_engages(ctrl, plant, None, "cuda"):
+        raise AssertionError("closed loop: config 5 does not take the step graphs")
+    roll(x0s)  # warm-up: the step graphs of the batch are captured here
     torch.cuda.synchronize()
 
     torch.cuda.reset_peak_memory_stats()
-    calls, restore = catch_boxqp_calls(ak, keep_call=CL_CHECK_STEP)
-    ak.reset_launch_counts()
-    try:
-        res = roll(x0s)
-        torch.cuda.synchronize()
-        n_launch = ak.LAUNCHES["boxqp_solve"]
-    finally:
-        restore()
+    res, k1, counters = traced(lambda: roll(x0s))
+    n_launch = sum(k1.values())
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    route = dict(ak.LAUNCH_INFO["boxqp_solve"])
     u, ok, sqp_iters = res.u, res.ok, res.info["sqp_iters"]
     if u.shape != (B, T, 1) or not bool(torch.isfinite(u).all()):
         raise AssertionError(f"closed loop: u has shape {tuple(u.shape)} or non-finite values")
     if res.x_true.shape != (B, T + 1, 2) or not bool(torch.isfinite(res.x_true).all()):
         raise AssertionError("closed loop: x_true has the wrong shape or non-finite values")
     lock_step = sqp_iters.amax(dim=0)  # [T]: 1 one-shot + the step's outer iterations
-    want = int(lock_step.sum())
-    log(f"closed loop: boxqp_solve launched {n_launch} time(s) ({calls['one_shot']} one-shot, "
-        f"{calls['outer']} outer SQP iterations) for {T} steps, lock-step SQP iterations "
-        f"{lock_step.tolist()}, last launch {route}")
-    if n_launch <= 0 or n_launch != want or calls["one_shot"] != T \
-            or calls["one_shot"] + calls["outer"] != n_launch:
+    # the graphs run the one-shot and one loop trip every step, then the
+    # trips the loop's test asks for
+    want = int(torch.clamp(lock_step, min=2).sum())
+    replayed = counters.get("closed_loop.graph_steps", 0)
+    log(f"closed loop: the device trace holds {n_launch} box-QP launches {k1} for {T} steps, "
+        f"lock-step SQP iterations {lock_step.tolist()}, the port counted "
+        f"{counters.get('sqp.lockstep_iters')} and {replayed} replayed steps")
+    if n_launch <= 0 or n_launch != want or counters.get("sqp.lockstep_iters") != want \
+            or replayed != T or any("boxqp_solve_smem_kernel" not in k for k in k1):
         raise AssertionError(
-            f"closed loop: {n_launch} boxqp_solve launches ({calls['one_shot']} one-shot, "
-            f"{calls['outer']} outer), expected {want} = sum over {T} steps of the lock-step "
-            "SQP iterations")
-    if calls["per_lane_hjk_calls"] or route.get("route") != "smem" or not route.get("shared_hjk"):
-        raise AssertionError(
-            f"closed loop: {calls['per_lane_hjk_calls']} calls with per-lane Hd/J/K, last {route}")
+            f"closed loop: {n_launch} box-QP launches {k1} in the device trace, expected {want} = "
+            f"sum over {T} steps of max(lock-step SQP iterations, 2) by the shared-memory kernel; "
+            f"counters {counters}")
     usable = float(ok.float().mean())
     if usable < CONV_GATE:
         raise AssertionError(f"closed loop: usable-step fraction {usable:.4f} < {CONV_GATE}")
@@ -1896,8 +1936,23 @@ def phase_closed_loop(x0s_np, trials: int, reps: int):
     if not (u_dev <= ERR_GATE):
         raise AssertionError(f"closed loop: max |u_fused - u_plain| {u_dev:.3e} > {ERR_GATE}")
 
+    # the one-shot QPs of step CL_CHECK_STEP as the step graphs give them to
+    # K1: the graphs' inputs after CL_CHECK_STEP replayed steps, through the
+    # eager step (the same code)
+    graphs = StepGraphs(ctrl, plant, B, dt)
+    graphs.run(x0s, CL_CHECK_STEP)
+    carry = type(graphs.carry)(*(t.clone() for t in graphs.carry))
+    calls, restore = catch_boxqp_calls(ak, keep_call=0)
+    try:
+        ctrl.step(carry, graphs.x.clone(), CL_CHECK_STEP * dt, dt)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    del graphs, carry
+    if calls["per_lane_hjk_calls"] or calls["kept"] is None:
+        raise AssertionError(f"closed loop step {CL_CHECK_STEP}: {calls['per_lane_hjk_calls']} "
+                             "calls with per-lane Hd/J/K, or no one-shot call")
     step_rec = closed_loop_step_kernel(*calls["kept"], reps)
-    kinds = dict(one_shot=calls["one_shot"], outer_sqp_iterations=calls["outer"])
     del calls
 
     best = float("inf")
@@ -1952,13 +2007,13 @@ def phase_closed_loop(x0s_np, trials: int, reps: int):
         batch=B, t_steps=T, dt=dt, rollouts_per_s=B / best, mpc_steps_per_s=B * T / best,
         rollout_batch_ms=best * 1e3, usable_step_frac=usable, max_u_dev_vs_plain=u_dev,
         plain_usable_step_frac=float(res_p.ok.float().mean()), plain_rollout_s=plain_rollout_s,
-        boxqp_solve_launches=n_launch,
-        boxqp_solve_launches_by_kind=kinds,
+        boxqp_solve_launches=n_launch, boxqp_solve_launches_by_kernel=k1,
+        replayed_steps=replayed, eager_trips=counters.get("closed_loop.eager_trips", 0),
         lock_step_sqp_iters=lock_step.tolist(),
         mean_outer_sqp_iters_per_step=float(outer.mean()),
         max_outer_sqp_iters_per_step=int(outer.max()),
         mean_final_state_norm=float(res.x_true[:, -1].norm(dim=-1).mean()),
-        kernel_route=route, peak_device_memory_gib=peak_gb,
+        kernel_route=step_rec["launch"], peak_device_memory_gib=peak_gb,
         p50_single_step_ms=float(np.percentile(lats, 50) * 1e3),
         p99_single_step_ms=float(np.percentile(lats, 99) * 1e3), single_steps=T,
         lm=dict(
@@ -1971,6 +2026,82 @@ def phase_closed_loop(x0s_np, trials: int, reps: int):
         ),
     )
     return n_launch, lm_launches["btridiag_factor_solve_inplace"], rec, step_rec, roll
+
+
+def phase_closed_loop_graph():
+    """Config 5's rollouts (the benchmark's ``rollouts_b4096_t20``: three
+    seeds of its initial states, and B = 1 and 1000) through the step
+    graphs of ``make_batched_closed_loop`` against the eager loop
+    (``run_closed_loop``) on the same controller: ``x_true``, ``u``, ``ok``
+    and every ``info`` tensor equal bit for bit. In the device trace of each
+    (``traced``), K1 launches = the lock-step SQP iterations: of the eager
+    loop, and of the graphs (the one-shot and one loop trip a step, and the
+    trips run after them); the port's counters give the replayed steps and
+    those trips. ms per batch both ways, untraced (best of CLG_TRIALS).
+    Returns the record."""
+    from control_box_rst_tpu_torch.entry import rollouts
+    from control_box_rst_tpu_torch.sim import run_closed_loop
+    from control_box_rst_tpu_torch.sim.step_graphs import StepGraphs, graph_engages
+    from control_box_rst_tpu_torch.utils.tree import tree_to
+    from perfbench import spec
+    from perfbench.generator import InitialStates
+
+    ctrl, plant, T, dt = rollouts(N=50)  # device=None: the card
+    plant = tree_to(plant, "cuda", torch.float32)
+    if not graph_engages(ctrl, plant, None, "cuda"):
+        raise AssertionError("closed loop graph: config 5 does not take the step graphs")
+    traffic = spec.load_json(ROOT / "perfbench" / "traffic" / "rollouts_b4096_t20.json")
+    B = traffic["batch"]
+    cases = [(f"seed{seed}", InitialStates(traffic, seed, stream=0).draw(B)) for seed in CLG_SEEDS]
+    cases += [(f"B{b}", InitialStates(traffic, CLG_SEEDS[0], stream=3).draw(b)) for b in (1, 1000)]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    rec = {}
+    for name, x0 in cases:
+        x0 = x0.to("cuda")
+        b = x0.shape[0]
+        t0 = time.perf_counter()
+        graphs = StepGraphs(ctrl, plant, b, dt)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        eager = lambda: run_closed_loop(plant, ctrl, x0, T, dt)
+        graphed = lambda: graphs.run(x0, T)
+        ref, k1_eager, _ = traced(eager)
+        got, k1_graph, counters = traced(graphed)
+        lock = ref.info["sqp_iters"].amax(dim=0)  # [T] lock-step iterations of the eager loop
+        want_graph = int(torch.clamp(lock, min=2).sum())
+        want_trips = int(torch.clamp(lock - 2, min=0).sum())
+        replays = counters.get("closed_loop.graph_steps", 0)
+        trips = counters.get("closed_loop.eager_trips", 0)
+        diff = [k for k in ("x_true", "u", "ok")
+                if not torch.equal(getattr(ref, k), getattr(got, k))]
+        diff += [f"info.{k}" for k in ref.info if not torch.equal(ref.info[k], got.info[k])]
+        if sorted(ref.info) != sorted(got.info):
+            diff.append("info keys")
+        eager_ms = min(timed(eager) for _ in range(CLG_TRIALS))
+        graph_ms = min(timed(graphed) for _ in range(CLG_TRIALS))
+        rec[name] = dict(
+            batch=b, t_steps=T, bit_equal=not diff, differs=diff, captures=1,
+            capture_s=capture_s, replays=replays, eager_trips=trips,
+            k1_launches_graph=sum(k1_graph.values()), lock_step_graph=want_graph,
+            k1_launches_eager=sum(k1_eager.values()), lock_step_eager=int(lock.sum()),
+            k1_kernels=sorted(set(k1_graph) | set(k1_eager)),
+            eager_ms=eager_ms, graph_ms=graph_ms, speedup=eager_ms / graph_ms,
+            usable_step_frac=float(got.ok.float().mean()))
+        log(f"closed loop graph {name}: " + json.dumps(rec[name]))
+        if diff or rec[name]["k1_launches_graph"] != want_graph \
+                or rec[name]["k1_launches_eager"] != int(lock.sum()) \
+                or replays != T or trips != want_trips:
+            raise AssertionError(f"closed loop graph {name}: {rec[name]}")
+        del graphs, ref, got
+        torch.cuda.empty_cache()
+    return rec
 
 
 def lm_quality(label, U, chi2, x0s_np):
@@ -3442,7 +3573,11 @@ def _batched_config1(tmp):
     """Config 1's YAML as ``benchmark_varying_x0`` over a MASTER_GRID² grid
     of initial states in [-1, 1]²: MASTER_GRID² rollouts of 70 steps of the
     YAML's H=50 OCP, through ``run_experiment``; gates: K1 launches == the
-    sum of the lock-step SQP iterations > 0, usable-step fraction >= 0.99,
+    sum of the lock-step SQP iterations > 0 (through the step graphs, which
+    this loop takes: in the device trace of the first run (``traced``), at
+    least two a step, the one-shot and one loop trip, and two more in the
+    capture's warm-up; no solve through ``sqp_solve``), usable-step
+    fraction >= 0.99,
     max |u_fused - u_plain| <= 1e-3 over the first MASTER_PLAIN_STEPS steps
     (plain = the same controller with backend 'plain', linsolver 'bcr')."""
     import yaml
@@ -3450,6 +3585,7 @@ def _batched_config1(tmp):
     from control_box_rst_tpu_torch.core import config as tc
     from control_box_rst_tpu_torch.ops.cuda import admm_kernel as ak
     from control_box_rst_tpu_torch.sim.benchmarks import benchmark_varying_initial_state
+    from control_box_rst_tpu_torch.sim.step_graphs import graph_engages
 
     cfg = yaml.safe_load((ROOT / "examples" / MASTER_EXAMPLES["config1"]).read_text())
     grid = np.linspace(-1.0, 1.0, MASTER_GRID).tolist()
@@ -3457,23 +3593,33 @@ def _batched_config1(tmp):
     cfg["experiment"] = {"task": "benchmark_varying_x0", "T_steps": T, "dt": 0.1,
                          "benchmark": {"x01": grid, "x02": grid}}
     B = MASTER_GRID * MASTER_GRID
+    ctrl, system = tc.build_controller(cfg)
+    plant = tc.build_plant(cfg, system)
+    graphed = graph_engages(ctrl, plant, None, "cuda")
     calls, restore = catch_master_run()
     ak.reset_launch_counts()
     try:
-        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        rec_sig = tc.run_experiment(cfg)
-        torch.cuda.synchronize()
+        rec_sig, k1_trace, _ = traced(lambda: tc.run_experiment(cfg))
         first_s = time.perf_counter() - t0
-        k1 = ak.LAUNCHES["boxqp_solve"]
         by_build = k1_launches_by_build(ak, "master batch")
     finally:
         restore()
+    k1 = sum(k1_trace.values())
     res, x0s = calls["results"][0]
     lock = res.info["sqp_iters"].amax(dim=0)
-    if k1 <= 0 or k1 != int(lock.sum()) or k1 != calls["sqp"]:
-        raise AssertionError(f"master batch: {k1} K1 launches, lock-step {lock.tolist()}, "
-                             f"solves {calls['sqp']}")
+    if graphed:
+        # the wrapper counts the calls of the warm-up and the capture; a
+        # replay's launches show only in the device trace
+        if len(by_build) != 1:
+            raise AssertionError(f"master batch: K1 builds {by_build}")
+        by_build = {b: k1 for b in by_build}
+        want = 2 + int(torch.clamp(lock, min=2).sum())
+    else:
+        want = int(lock.sum())
+    if k1 <= 0 or k1 != want or calls["sqp"] != (0 if graphed else k1):
+        raise AssertionError(f"master batch: {k1} K1 launches {k1_trace}, lock-step "
+                             f"{lock.tolist()}, solves {calls['sqp']}, step graphs {graphed}")
     if res.u.shape != (B, T, 1) or not bool(torch.isfinite(res.u).all()):
         raise AssertionError(f"master batch: u {tuple(res.u.shape)} or non-finite")
     if rec_sig.get("benchmark/controls")["matrices"][0].shape != (B, T, 1):
@@ -3486,8 +3632,6 @@ def _batched_config1(tmp):
     # block-tridiagonal solves by cyclic reduction: the plain ADMM's stage
     # loop ('scan') took 346 s for these 10 steps on the card (8 SQP
     # iterations of 200 ADMM iterations a step, eager kernels)
-    ctrl, system = tc.build_controller(cfg)
-    plant = tc.build_plant(cfg, system)
     plain = ctrl.replace(cfg=ctrl.cfg.replace(
         qp=ctrl.cfg.qp.replace(backend="plain", linsolver="bcr")))
     ak.reset_launch_counts()
@@ -3503,7 +3647,7 @@ def _batched_config1(tmp):
     x_T = res.x_true[:, -1].norm(dim=-1)
     out = dict(batch=B, t_steps=T, rollouts_per_s=B / best, mpc_steps_per_s=B * T / best,
                rollout_batch_s=best, first_batch_s=first_s, boxqp_solve_launches=k1,
-               boxqp_solve_launches_by_build=by_build,
+               boxqp_solve_launches_by_build=by_build, step_graphs=graphed,
                lock_step_sqp_iters=lock.tolist(), mean_sqp_iters=float(res.info["sqp_iters"].float().mean()),
                usable_step_frac=usable, max_u_fused_vs_plain=dev, plain_steps=MASTER_PLAIN_STEPS,
                plain_s=plain_s, mean_final_state_norm=float(x_T.mean()),
@@ -4205,6 +4349,9 @@ def main() -> int:
                          "solve, and every kernel by itself with torch.profiler")
     ap.add_argument("--skip-main", action="store_true",
                     help="stop after the kernel phase (no result line)")
+    ap.add_argument("--closed-loop-only", action="store_true",
+                    help="after the build, run only the closed_loop and closed_loop_graph "
+                         "phases and the master's config-1 batch, and print their lines")
     opts = ap.parse_args()
 
     # ---- 1 device ----
@@ -4253,6 +4400,21 @@ def main() -> int:
 
     rng = np.random.default_rng(0)
     x0s_np = rng.uniform(-1.0, 1.0, size=(BATCH, 2)).astype(np.float32)
+    if opts.closed_loop_only:
+        cl_rec = phase_closed_loop(x0s_np[:CL_BATCH], CL_TRIALS, KERNEL_REPS)[2]
+        stamp("closed_loop")
+        clg_rec = phase_closed_loop_graph()
+        stamp("closed_loop_graph")
+        import tempfile
+
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            batch_rec = _batched_config1(pathlib.Path(tmp))
+        stamp("master_batch")
+        log(json.dumps({"closed_loop": cl_rec}))
+        log(json.dumps({"closed_loop_graph": clg_rec}))
+        log(json.dumps({"master_batch": batch_rec}))
+        log(json.dumps({"phase_seconds": phase_s}))
+        return 0
 
     # ---- 3 kernels ----
     ocp_dev = ocp.to(device="cuda", dtype=torch.float32)
@@ -4284,6 +4446,8 @@ def main() -> int:
         x0s_np[:CL_BATCH], CL_TRIALS, KERNEL_REPS)
     records[0]["shapes"]["closed_loop"] = cl_step_rec
     stamp("closed_loop")
+    clg_rec = phase_closed_loop_graph()
+    stamp("closed_loop_graph")
     # ---- config 4: open loop, adaptive closed loop, K1 at their shapes ----
     nu_x0s = nonuniform_x0s()
     nu_ol_k1, nu_ol_rec, nu_solve = phase_nonuniform_open_loop(nu_x0s, NU_TRIALS, NU_SINGLE)
@@ -4434,6 +4598,7 @@ def main() -> int:
     log(json.dumps({"lm": lm_rec}))
     log(json.dumps({"nonlinear": nl_rec}))
     log(json.dumps({"closed_loop": cl_rec}))
+    log(json.dumps({"closed_loop_graph": clg_rec}))
     log(json.dumps({"ip": ip_rec}))
     log(json.dumps({"grids": grid_rec}))
     log(json.dumps({"hs_closed_loop": hs_cl_rec}))

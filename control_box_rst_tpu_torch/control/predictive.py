@@ -45,6 +45,7 @@ from control_box_rst_tpu_torch.solvers.lm import LMConfig, lm_solve
 from control_box_rst_tpu_torch.solvers.sqp import (
     SQPConfig,
     SQPHoisted,
+    SQPResult,
     SQPWarmStart,
     hoist_structure,
     resolve_qp_backend,
@@ -259,7 +260,41 @@ class PredictiveController(Controller):
 
     @span("controller.step")
     def step(self, carry: MPCCarry, x: torch.Tensor, t, dt) -> tuple:
-        """One MPC step of every lane from the measured states x [B, nx]."""
+        """One MPC step of every lane from the measured states x [B, nx]:
+        ``step_prefix``, the solve, ``step_suffix``."""
+        ocp, n_active, warm = self.step_prefix(carry, x)
+        traj_init = ocp.unpack(warm.W)
+        if self.solver == "lm":
+            lm_res = lm_solve(ocp, traj_init, self.lm_cfg)
+            # LM carries no duals: the carry's pass through unchanged
+            iterations = lm_res.iterations
+            solved = Solved(
+                W=lm_res.W, traj=lm_res.traj, feas=lm_res.feas_res, y_dyn=warm.y_dyn,
+                y_gen=warm.y_gen, y_box=warm.y_box,
+                objective=ocp.objective_from_W(lm_res.W), iterations=iterations,
+                stat=lm_res.chi2, qp_iters=torch.zeros_like(iterations))
+        elif self.solver == "ip":
+            res = ip_solve(ocp, traj_init, self.ip_cfg)
+            # the bound duals in the SQP's signed-box convention (positive:
+            # pushing against the upper bound)
+            solved = Solved(
+                W=res.W, traj=res.traj, feas=res.feas_res, y_dyn=res.y_dyn,
+                y_gen=res.y_gen, y_box=res.z_uw - res.z_lw, objective=res.objective,
+                iterations=res.iterations, stat=res.stat_res,
+                qp_iters=torch.zeros_like(res.iterations))
+        else:
+            for _ in range(self.num_ocp_iterations):
+                res = sqp_solve(ocp, traj_init, self.sqp_cfg, warm=warm, hoisted=self.hoisted)
+                warm = SQPWarmStart(W=res.W, y_dyn=res.y_dyn, y_gen=res.y_gen, y_box=res.y_box)
+                traj_init = res.traj
+            solved = solved_by_sqp(res)
+        return self.step_suffix(n_active, solved)
+
+    def step_prefix(self, carry: MPCCarry, x: torch.Tensor):
+        """The step up to the solve: the grid adaptation, the warm start
+        shifted by each lane's state-proximity count, the x0 row and the
+        pinned terminal components. Returns (the OCP from x, each lane's
+        active horizon, the warm start)."""
         ocp = self.ocp.replace(bc=self.ocp.bc.replace(x0=x))
         nx, N = ocp.nx, ocp.N
         W, y_dyn, y_gen, y_box = carry.W, carry.y_dyn, carry.y_gen, carry.y_box
@@ -290,53 +325,56 @@ class PredictiveController(Controller):
         if ocp.bc.xf_fixed is not None and ocp.bc.xf is not None:
             mask = ocp.bc.xf_fixed.to(W.dtype)
             W[..., -1, :nx] = mask * ocp.bc.xf + (1.0 - mask) * W[..., -1, :nx]
-        traj_init = ocp.unpack(W)
-        if self.solver == "lm":
-            lm_res = lm_solve(ocp, traj_init, self.lm_cfg)
-            # LM carries no duals: the carry's pass through unchanged
-            W_next, traj, feas = lm_res.W, lm_res.traj, lm_res.feas_res
-            objective, iterations, stat = ocp.objective_from_W(W_next), lm_res.iterations, lm_res.chi2
-            qp_iters = torch.zeros_like(iterations)
-        elif self.solver == "ip":
-            res = ip_solve(ocp, traj_init, self.ip_cfg)
-            W_next, traj, feas = res.W, res.traj, res.feas_res
-            # the bound duals in the SQP's signed-box convention (positive:
-            # pushing against the upper bound)
-            y_dyn, y_gen, y_box = res.y_dyn, res.y_gen, res.z_uw - res.z_lw
-            objective, iterations, stat = res.objective, res.iterations, res.stat_res
-            qp_iters = torch.zeros_like(iterations)
-        else:
-            warm = SQPWarmStart(W=W, y_dyn=y_dyn, y_gen=y_gen, y_box=y_box)
-            for _ in range(self.num_ocp_iterations):
-                res = sqp_solve(ocp, traj_init, self.sqp_cfg, warm=warm, hoisted=self.hoisted)
-                warm = SQPWarmStart(W=res.W, y_dyn=res.y_dyn, y_gen=res.y_gen, y_box=res.y_box)
-                traj_init = res.traj
-            W_next, traj, feas = res.W, res.traj, res.feas_res
-            y_dyn, y_gen, y_box = res.y_dyn, res.y_gen, res.y_box
-            objective, iterations, stat, qp_iters = (
-                res.objective, res.iterations, res.stat_res, res.qp_iters)
+        return ocp, n_active, SQPWarmStart(W=W, y_dyn=y_dyn, y_gen=y_gen, y_box=y_box)
+
+    def step_suffix(self, n_active: torch.Tensor, solved: Solved) -> tuple:
+        """The step after the solve: the duals of an unusable solve reset,
+        the new carry and the ``ControlOutput``."""
         # duals of an unusable solve are no warm start (ADMM on an
         # infeasible QP grows them without bound): reset, lane by lane
+        feas, traj = solved.feas, solved.traj
         usable = feas < self.usable_feas_tol
         u2 = usable[..., None, None]
-        y_dyn = torch.where(u2, y_dyn, torch.zeros_like(y_dyn))
-        y_gen = torch.where(u2, y_gen, torch.zeros_like(y_gen))
-        y_box = torch.where(u2, y_box, torch.zeros_like(y_box))
+        y_dyn = torch.where(u2, solved.y_dyn, torch.zeros_like(solved.y_dyn))
+        y_gen = torch.where(u2, solved.y_gen, torch.zeros_like(solved.y_gen))
+        y_box = torch.where(u2, solved.y_box, torch.zeros_like(solved.y_box))
         u0 = traj.U[..., 0, :]
         new_carry = MPCCarry(
-            W=W_next, y_dyn=y_dyn, y_gen=y_gen, y_box=y_box, u_prev=u0,
+            W=solved.W, y_dyn=y_dyn, y_gen=y_gen, y_box=y_box, u_prev=u0,
             n_active=n_active, feas_prev=feas,
         )
         out = ControlOutput(
             u=u0, u_seq=traj.U, x_seq=traj.X, ok=usable,
             info={
-                "objective": objective,
-                "sqp_iters": iterations,
-                "qp_iters": qp_iters,
-                "stat_res": stat,
+                "objective": solved.objective,
+                "sqp_iters": solved.iterations,
+                "qp_iters": solved.qp_iters,
+                "stat_res": solved.stat,
                 "feas_res": feas,
                 "dts": traj.dts,
                 "n_active": n_active,
             },
         )
         return new_carry, out
+
+
+class Solved(NamedTuple):
+    """What a controller step takes from its solver, whichever it is."""
+
+    W: torch.Tensor
+    traj: Trajectory
+    feas: torch.Tensor
+    y_dyn: torch.Tensor
+    y_gen: torch.Tensor
+    y_box: torch.Tensor
+    objective: torch.Tensor
+    iterations: torch.Tensor
+    stat: torch.Tensor
+    qp_iters: torch.Tensor
+
+
+def solved_by_sqp(res: SQPResult) -> Solved:
+    return Solved(
+        W=res.W, traj=res.traj, feas=res.feas_res, y_dyn=res.y_dyn, y_gen=res.y_gen,
+        y_box=res.y_box, objective=res.objective, iterations=res.iterations,
+        stat=res.stat_res, qp_iters=res.qp_iters)

@@ -18,6 +18,7 @@ from control_box_rst_tpu_torch.ocp.transcribe import TranscribedOCP
 from control_box_rst_tpu_torch.parallel.mesh import from_local_batch, local_batch, mesh_device
 from control_box_rst_tpu_torch.sim.closed_loop import ClosedLoopResult, run_closed_loop
 from control_box_rst_tpu_torch.sim.plant import SimulatedPlant
+from control_box_rst_tpu_torch.sim.step_graphs import StepGraphs, graph_engages
 from control_box_rst_tpu_torch.solvers.ip import IPConfig, ip_solve
 from control_box_rst_tpu_torch.solvers.lm import LMConfig, lm_solve
 from control_box_rst_tpu_torch.solvers.sqp import (
@@ -186,7 +187,12 @@ def make_batched_closed_loop(
     fused box-QP kernel for a float32 solve on the card. ``observer``
     (``None``: the state is measured) is moved there too. x0s may be a
     tensor or a numpy array; ``generator`` is what noisy plants draw from
-    (on ``device``; ``None`` means one seeded with 0).
+    (on ``device``; ``None`` means one seeded with 0). Where
+    ``sim.step_graphs.graph_engages`` says so (config 5's one-shot SQP
+    controller on the card, the state measured, a noise-free plant), a call
+    replays the MPC step from two CUDA graphs, captured by the first call
+    and again by each call whose batch size differs from the one before
+    (the old graphs are dropped): the result is the eager loop's bit for bit.
 
     With a ``mesh`` the device is the mesh's; x0s may also be a ``Shard(0)``
     DTensor, each rank rolls out its own lanes, and every field of the
@@ -199,10 +205,18 @@ def make_batched_closed_loop(
     controller = controller.to(device, dtype)
     plant = tree_to(plant, device, dtype)
     observer = None if observer is None else tree_to(observer, device, dtype)
+    graphed = graph_engages(controller, plant, observer, device)
+    graphs = None
 
     @span("entry.rollout")
     def run(x0s, generator, plant) -> ClosedLoopResult:
+        nonlocal graphs
         x0s = torch.as_tensor(x0s).to(device=device, dtype=dtype)
+        if graphed and x0s.dim() == 2:
+            if graphs is None or graphs.B != x0s.shape[0]:
+                graphs = None
+                graphs = StepGraphs(controller, plant, x0s.shape[0], dt)
+            return graphs.run(x0s, T_steps)
         return run_closed_loop(plant, controller, x0s, T_steps, dt, observer=observer,
                                generator=generator)
 

@@ -18,7 +18,7 @@ import torch
 
 from control_box_rst_tpu_torch.sim.observer import NoObserver
 from control_box_rst_tpu_torch.sim.plant import SimulatedPlant
-from control_box_rst_tpu_torch.utils.profiling import span
+from control_box_rst_tpu_torch.utils.profiling import count, span
 
 
 class ClosedLoopResult(NamedTuple):
@@ -98,6 +98,7 @@ def run_closed_loop(
     u_prev = torch.zeros((B, plant.system.nu), dtype=x.dtype, device=x.device)
     xs, ys, xhats, us, oks, infos = [x], [], [], [], [], []
     for k in range(T_steps):
+        count("closed_loop.eager_steps")
         t = t0 + k * dt
         y = plant.output(x, generator)
         # the observer predicts with the control applied over the PREVIOUS
@@ -121,6 +122,15 @@ def run_closed_loop(
         infos.append(out.info)
         u_prev = u
 
+    return stack_steps(t0, dt, xs, ys, xhats, us, oks, infos, unbatched)
+
+
+def stack_steps(t0, dt, xs, ys, xhats, us, oks, infos, unbatched=False) -> ClosedLoopResult:
+    """The ``ClosedLoopResult`` of a closed loop's per-step signals: each
+    list stacked along time (``xs`` holds the initial state too, ``infos``
+    one dict a step)."""
+    x = xs[0]
+    B, T_steps = x.shape[0], len(us)
     stack = lambda seq: torch.stack(seq, dim=1)
     ts = t0 + dt * torch.arange(T_steps, dtype=x.dtype, device=x.device)
     res = ClosedLoopResult(

@@ -32,7 +32,7 @@ from control_box_rst_tpu_torch.solvers.stage_qp import (
     solve_stage_qp,
 )
 from control_box_rst_tpu_torch.utils.precision import check_precision_policy
-from control_box_rst_tpu_torch.utils.profiling import count, span
+from control_box_rst_tpu_torch.utils.profiling import count, recording, span
 from control_box_rst_tpu_torch.utils.tree import plain_dataclass
 
 
@@ -192,6 +192,47 @@ def hoist_structure(
     )
 
 
+class SQPContext(NamedTuple):
+    """What stays fixed over the loop trips of one ``sqp_solve``: the OCP,
+    the settings, the tolerances, the pin mask, the bounds, the line-search
+    step lengths and the hoisted structure (``_sqp_start``)."""
+    ocp: TranscribedOCP
+    cfg: SQPConfig
+    lead: tuple
+    tol_stat: float
+    tol_feas: float
+    free: torch.Tensor
+    lb: torch.Tensor
+    ub: torch.Tensor
+    alphas: torch.Tensor
+    hoisted: SQPHoisted
+    hoist_JK: bool
+    hoist_H: bool
+    clamp: bool
+    one_shot: bool
+    empty_G: torch.Tensor
+    empty_g: torch.Tensor
+
+
+class SQPIterate(NamedTuple):
+    """The state the SQP loop carries from trip to trip, per lane."""
+    W: torch.Tensor
+    y_dyn: torch.Tensor
+    y_gen: torch.Tensor
+    y_box: torch.Tensor
+    nu: torch.Tensor
+    it: torch.Tensor
+    stat: torch.Tensor
+    feas: torch.Tensor
+    done: torch.Tensor
+    qp_tot: torch.Tensor
+
+
+# clamp ±inf to a large finite value (OSQP's OSQP_INFTY trick): keeps every
+# arithmetic path finite, inf−inf / 0·inf NaNs are ruled out
+BIG = 1e8
+
+
 @span("sqp.solve")
 def sqp_solve(
     ocp: TranscribedOCP,
@@ -209,7 +250,71 @@ def sqp_solve(
     their duals ``y_gen`` warm-started, in the merit and in the KKT test;
     they are evaluated at every iteration (nothing of G is hoisted), and the
     QP takes the non-fused ADMM. The Hessian blocks are clamped to PSD when
-    ``cfg.psd_clamp`` is set or the cost is not convex."""
+    ``cfg.psd_clamp`` is set or the cost is not convex.
+
+    The same solve in three steps, for a caller that holds the first in a
+    CUDA graph (``sim/step_graphs.py``): ``sqp_begin``, ``sqp_rest`` and
+    ``sqp_finish``."""
+    ctx, s = _sqp_start(ocp, traj0, cfg, warm, hoisted)
+    trips = 0
+    while _sqp_wait(_sqp_more(ctx, s)):
+        trips += 1
+        s = _sqp_trip(ctx, s)
+    _count_work(ctx, s.it, trips)
+    return sqp_finish(ctx, s)
+
+
+def sqp_begin(
+    ocp: TranscribedOCP,
+    traj0: Trajectory,
+    cfg: Optional[SQPConfig] = None,
+    warm: Optional[SQPWarmStart] = None,
+    hoisted: Optional[SQPHoisted] = None,
+):
+    """``sqp_solve``'s set-up, its one-shot and one loop trip, taken
+    whatever the loop's test says (exact: a trip over lanes that are all
+    done or out of budget changes nothing), with no wait of the host on the
+    device. Returns (the solve's ``SQPContext``, the ``SQPIterate``, the
+    loop's test as a device tensor) for ``sqp_rest``."""
+    ctx, s = _sqp_start(ocp, traj0, cfg, warm, hoisted)
+    s = _sqp_trip(ctx, s)
+    return ctx, s, _sqp_more(ctx, s)
+
+
+def sqp_rest(ctx: "SQPContext", s: "SQPIterate", more: torch.Tensor):
+    """The rest of the loop after ``sqp_begin``: the test on the host, the
+    trips it asks for, and the solve's counters (``s.it`` is counted from a
+    copy: a graph's replay overwrites it). Returns (the last iterate, the
+    trips run here); ``sqp_finish`` of it is ``sqp_solve``'s result."""
+    trips = 0
+    while _sqp_wait(more):
+        trips += 1
+        s = _sqp_trip(ctx, s)
+        more = _sqp_more(ctx, s)
+    if recording():
+        _count_work(ctx, s.it.clone(), trips + 1)
+    return s, trips
+
+
+def one_shot_applies(ocp: TranscribedOCP, cfg: SQPConfig) -> bool:
+    """Whether ``sqp_solve`` starts with the one-shot: J, K and Hd constant
+    and shared by every lane (LTI dynamics, a constant Hessian, no per-lane
+    stage mask), box rows only, and the fused QP (``cfg.qp.backend``
+    resolved)."""
+    return (ocp.lti_structure and ocp.constant_hessian and not ocp.per_lane_mask
+            and ocp.ng == 0 and cfg.qp.backend == "fused")
+
+
+def _sqp_wait(more: torch.Tensor) -> bool:
+    """The loop's test on the host: the one wait of the host on the device
+    in a lock-step iteration."""
+    with span("sqp.wait"):
+        return bool(more)
+
+
+def _sqp_start(ocp, traj0, cfg, warm, hoisted):
+    """The set-up of ``sqp_solve`` and, where the structure allows it, the
+    one-shot solve. Returns (``SQPContext``, the first ``SQPIterate``)."""
     check_precision_policy()
     if cfg is None:
         cfg = SQPConfig()
@@ -230,9 +335,6 @@ def sqp_solve(
     pin = ocp.fixed_mask().to(dtype)
     free = 1.0 - pin
     lb, ub = ocp.w_bounds()
-    # clamp ±inf to a large finite value (OSQP's OSQP_INFTY trick): keeps
-    # every arithmetic path finite, inf−inf / 0·inf NaNs are ruled out
-    BIG = 1e8
     lb = torch.clamp(lb.to(dtype), min=-BIG)
     ub = torch.clamp(ub.to(dtype), max=BIG)
 
@@ -260,9 +362,6 @@ def sqp_solve(
     hoist_JK = ocp.lti_structure and not ocp.per_lane_mask
     hoist_H = ocp.constant_hessian and not ocp.per_lane_mask
 
-    def _mask_H(Hd):
-        return _mask_hessian(Hd, free, cfg.prox, clamp)
-
     # ---- one-shot LTI fast path (single fused kernel launch) ----
     # LTI dynamics + constant quadratic Hessian + box-only constraints make
     # the NLP itself a convex QP: the first linearization is exact and the QP
@@ -275,9 +374,9 @@ def sqp_solve(
     #
     # Correctness contract: the one-shot result is checked against the EXACT
     # NLP KKT residuals, and lanes that miss tolerance fall through into the
-    # standard outer SQP loop below (their `done` flag starts False) — the
+    # standard outer SQP loop (their `done` flag starts False) — the
     # one-shot can only accelerate, never degrade.
-    one_shot = hoist_JK and hoist_H and ng == 0 and cfg.qp.backend == "fused"
+    one_shot = one_shot_applies(ocp, cfg)
     it0 = torch.zeros(lead, dtype=torch.int32, device=dev)
     qp_iters0 = torch.zeros(lead, dtype=torch.int32, device=dev)
     done0 = torch.zeros(lead, dtype=torch.bool, device=dev)
@@ -286,7 +385,6 @@ def sqp_solve(
     empty_G = torch.zeros((N + 1, 0, nz), **kw)
     empty_g = torch.zeros((N + 1, 0), **kw)
     if one_shot:
-        count("sqp.lockstep_iters")
         per_qp_budget = cfg.qp.max_iter if cfg.qp.max_iter is not None else 200
         qp_cfg_os = cfg.qp.replace(
             max_iter=cfg.max_iter * per_qp_budget,
@@ -323,124 +421,150 @@ def sqp_solve(
         it0 = torch.ones(lead, dtype=torch.int32, device=dev)
         qp_iters0 = sol.iters
 
-    W, y_dyn, y_gen, y_box = W0, y_dyn0, y_gen0, y_box0
     nu = torch.full(lead, cfg.merit_nu_init, **kw)
-    it, stat, feas, done, qp_tot = it0, stat0, feas0, done0, qp_iters0
-
-    trips = 0
-    while True:
-        more = ((it < cfg.max_iter) & ~done).any()
-        # the one wait of the host on the device in a lock-step iteration
-        with span("sqp.wait"):
-            more = bool(more)
-        if not more:
-            break
-        trips += 1
-        count("sqp.lockstep_iters")
-        # ---- linearize (exact AD, all stages and lanes at once) ----
-        if hoist_JK:
-            Jm, Km = Jm_c, Km_c
-            c = ocp.interval_residuals(W)
-        else:
-            J, K, c = ocp.interval_jacobians(W)
-            Jm = J * free[:-1, None, :]
-            Km = K * free[1:, None, :]
-        grad = ocp.cost_gradient(W)
-        Hm = Hm_c if hoist_H else _mask_H(ocp.cost_hessian_blocks(W))
-
-        # ---- pin masking: zero columns of fixed variables ----
-        gm = grad * free
-        zero_w = torch.zeros_like(W)
-        Gm, gl, gu = empty_G, empty_g, empty_g
-        if ng:
-            r, rl, ru = ocp.general_rows(W)
-            Gm = ocp.general_row_jacobians(W) * free[:, None, :]
-            gl = torch.clamp(rl - r, min=-BIG)
-            gu = torch.clamp(ru - r, max=BIG)
-        qp = StageQP(
-            Hd=Hm, g=gm, J=Jm, K=Km, c=c, G=Gm, gl=gl, gu=gu,
-            dlb=torch.where(free > 0, lb - W, zero_w),
-            dub=torch.where(free > 0, ub - W, zero_w),
-        )
-        sol = solve_stage_qp(
-            qp, cfg.qp,
-            warm=QPWarmStart(delta=zero_w, y_dyn=y_dyn, y_gen=y_gen, y_box=y_box),
-        )
-        delta = sol.delta * free
-
-        # ---- ℓ1 merit line search (parallel candidates) ----
-        with span("sqp.line_search"):
-            y_max = _amax2(sol.y_dyn.abs())
-            if ng:
-                y_max = torch.maximum(y_max, _amax2(sol.y_gen.abs()))
-            # ν tracks the current dual scale both ways: it must dominate the
-            # duals for the ℓ1 merit to be exact, but a ν stuck at the scale of
-            # the FIRST iterations' duals over-penalizes residual infeasibility
-            # near the solution; geometric decay forgets stale magnitudes.
-            nu_new = torch.maximum(1.2 * y_max + 1e-3, 0.5 * nu)
-            phi0, infeas0 = _merit(ocp, W, lb, ub, nu_new, free)
-            dirderiv = (grad * delta).sum(dim=(-2, -1)) - nu_new * infeas0
-
-            # candidates in a new leading dim: [n_cand, *lead, N+1, nz]
-            a_w = alphas.reshape((-1,) + (1,) * (len(lead) + 2))
-            a_l = alphas.reshape((-1,) + (1,) * len(lead))
-            phis, infeas_c = _merit(ocp, W + a_w * delta, lb, ub, nu_new, free)
-            ok = phis <= phi0 + cfg.ls_c1 * a_l * torch.clamp(dirderiv, max=0.0)
-            any_ok = ok.any(dim=0)
-            idx = ok.to(torch.int8).argmax(dim=0)  # first True = largest α
-            # Maratos watchdog: accept the FULL step whenever the merit test
-            # fails across the board yet the trial point stays essentially
-            # feasible, i.e. the rejection is second-order noise, not a real
-            # feasibility loss.
-            rescue = (
-                (~any_ok)
-                & (infeas0 <= cfg.rescue_infeas_max)
-                & (infeas_c[0] <= torch.clamp(10.0 * infeas0, min=tol_feas))
-            )
-            alpha = torch.where(
-                any_ok, alphas[idx], torch.where(rescue, alphas[0], alphas[-1])
-            )
-            step = alpha[..., None, None] * delta
-            W_new = W + step
-
-        # ---- KKT residuals (at current linearization, QP multipliers) ----
-        grad_lag = _grad_lagrangian(gm, Jm, Km, sol.y_dyn, sol.y_box, free)
-        feas_n = _amax2(c.abs())
-        if ng:
-            grad_lag = grad_lag + torch.einsum("...kri,...kr->...ki", Gm, sol.y_gen)
-            viol = torch.clamp(rl - r, min=0.0) + torch.clamp(r - ru, min=0.0)
-            feas_n = torch.maximum(feas_n, _amax2(viol))
-        stat_n = _amax2((grad_lag * free).abs())
-        step_norm = _amax2(step.abs())
-        converged = ((stat_n < tol_stat) & (feas_n < tol_feas)) | (
-            (step_norm < 1e-12) & (feas_n < tol_feas)
-        )
-        # freeze finished lanes: the loop runs until ALL lanes finish, and
-        # extra iterations must not move a lane that already satisfied its
-        # KKT tolerances (or spent its budget)
-        frozen = done | (it >= cfg.max_iter)
-        f2 = frozen[..., None, None]
-        W = torch.where(f2, W, W_new)
-        y_dyn = torch.where(f2, y_dyn, sol.y_dyn)
-        y_gen = torch.where(f2, y_gen, sol.y_gen)
-        y_box = torch.where(f2, y_box, sol.y_box)
-        stat = torch.where(frozen, stat, stat_n)
-        feas = torch.where(frozen, feas, feas_n)
-        it = torch.where(frozen, it, it + 1)
-        qp_tot = torch.where(frozen, qp_tot, qp_tot + sol.iters)
-        done = torch.where(frozen, done, converged)
-        nu = torch.where(frozen, nu, nu_new)
-
-    status = torch.where(
-        done,
-        torch.full_like(it, int(SolverStatus.CONVERGED)),
-        torch.full_like(it, int(SolverStatus.EARLY_TERMINATED)),
+    ctx = SQPContext(
+        ocp=ocp, cfg=cfg, lead=lead, tol_stat=tol_stat, tol_feas=tol_feas,
+        free=free, lb=lb, ub=ub, alphas=alphas, hoisted=hoisted,
+        hoist_JK=hoist_JK, hoist_H=hoist_H, clamp=clamp, one_shot=one_shot,
+        empty_G=empty_G, empty_g=empty_g,
     )
-    # useful lane iterations against the slots lock step gave the lanes
+    return ctx, SQPIterate(
+        W=W0, y_dyn=y_dyn0, y_gen=y_gen0, y_box=y_box0, nu=nu, it=it0,
+        stat=stat0, feas=feas0, done=done0, qp_tot=qp_iters0,
+    )
+
+
+def _sqp_more(ctx: SQPContext, s: SQPIterate) -> torch.Tensor:
+    """True (a device tensor) while a lane is neither done nor out of budget."""
+    return ((s.it < ctx.cfg.max_iter) & ~s.done).any()
+
+
+def _sqp_trip(ctx: SQPContext, s: SQPIterate) -> SQPIterate:
+    """One trip of the SQP loop over every lane. A lane that is done or out
+    of budget is frozen: every update is ``torch.where(frozen, old, new)``,
+    so a trip over lanes that are all frozen changes nothing."""
+    ocp, cfg, free, lb, ub = ctx.ocp, ctx.cfg, ctx.free, ctx.lb, ctx.ub
+    ng, lead, alphas = ocp.ng, ctx.lead, ctx.alphas
+    Jm_c, Km_c, Hm_c = ctx.hoisted
+    W, y_dyn, y_gen, y_box, nu = s.W, s.y_dyn, s.y_gen, s.y_box, s.nu
+    it, done = s.it, s.done
+    # ---- linearize (exact AD, all stages and lanes at once) ----
+    if ctx.hoist_JK:
+        Jm, Km = Jm_c, Km_c
+        c = ocp.interval_residuals(W)
+    else:
+        J, K, c = ocp.interval_jacobians(W)
+        Jm = J * free[:-1, None, :]
+        Km = K * free[1:, None, :]
+    grad = ocp.cost_gradient(W)
+    Hm = Hm_c if ctx.hoist_H else _mask_hessian(
+        ocp.cost_hessian_blocks(W), free, cfg.prox, ctx.clamp)
+
+    # ---- pin masking: zero columns of fixed variables ----
+    gm = grad * free
+    zero_w = torch.zeros_like(W)
+    Gm, gl, gu = ctx.empty_G, ctx.empty_g, ctx.empty_g
+    if ng:
+        r, rl, ru = ocp.general_rows(W)
+        Gm = ocp.general_row_jacobians(W) * free[:, None, :]
+        gl = torch.clamp(rl - r, min=-BIG)
+        gu = torch.clamp(ru - r, max=BIG)
+    qp = StageQP(
+        Hd=Hm, g=gm, J=Jm, K=Km, c=c, G=Gm, gl=gl, gu=gu,
+        dlb=torch.where(free > 0, lb - W, zero_w),
+        dub=torch.where(free > 0, ub - W, zero_w),
+    )
+    sol = solve_stage_qp(
+        qp, cfg.qp,
+        warm=QPWarmStart(delta=zero_w, y_dyn=y_dyn, y_gen=y_gen, y_box=y_box),
+    )
+    delta = sol.delta * free
+
+    # ---- ℓ1 merit line search (parallel candidates) ----
+    with span("sqp.line_search"):
+        y_max = _amax2(sol.y_dyn.abs())
+        if ng:
+            y_max = torch.maximum(y_max, _amax2(sol.y_gen.abs()))
+        # ν tracks the current dual scale both ways: it must dominate the
+        # duals for the ℓ1 merit to be exact, but a ν stuck at the scale of
+        # the FIRST iterations' duals over-penalizes residual infeasibility
+        # near the solution; geometric decay forgets stale magnitudes.
+        nu_new = torch.maximum(1.2 * y_max + 1e-3, 0.5 * nu)
+        phi0, infeas0 = _merit(ocp, W, lb, ub, nu_new, free)
+        dirderiv = (grad * delta).sum(dim=(-2, -1)) - nu_new * infeas0
+
+        # candidates in a new leading dim: [n_cand, *lead, N+1, nz]
+        a_w = alphas.reshape((-1,) + (1,) * (len(lead) + 2))
+        a_l = alphas.reshape((-1,) + (1,) * len(lead))
+        phis, infeas_c = _merit(ocp, W + a_w * delta, lb, ub, nu_new, free)
+        ok = phis <= phi0 + cfg.ls_c1 * a_l * torch.clamp(dirderiv, max=0.0)
+        any_ok = ok.any(dim=0)
+        idx = ok.to(torch.int8).argmax(dim=0)  # first True = largest α
+        # Maratos watchdog: accept the FULL step whenever the merit test
+        # fails across the board yet the trial point stays essentially
+        # feasible, i.e. the rejection is second-order noise, not a real
+        # feasibility loss.
+        rescue = (
+            (~any_ok)
+            & (infeas0 <= cfg.rescue_infeas_max)
+            & (infeas_c[0] <= torch.clamp(10.0 * infeas0, min=ctx.tol_feas))
+        )
+        alpha = torch.where(
+            any_ok, alphas[idx], torch.where(rescue, alphas[0], alphas[-1])
+        )
+        step = alpha[..., None, None] * delta
+        W_new = W + step
+
+    # ---- KKT residuals (at current linearization, QP multipliers) ----
+    grad_lag = _grad_lagrangian(gm, Jm, Km, sol.y_dyn, sol.y_box, free)
+    feas_n = _amax2(c.abs())
+    if ng:
+        grad_lag = grad_lag + torch.einsum("...kri,...kr->...ki", Gm, sol.y_gen)
+        viol = torch.clamp(rl - r, min=0.0) + torch.clamp(r - ru, min=0.0)
+        feas_n = torch.maximum(feas_n, _amax2(viol))
+    stat_n = _amax2((grad_lag * free).abs())
+    step_norm = _amax2(step.abs())
+    converged = ((stat_n < ctx.tol_stat) & (feas_n < ctx.tol_feas)) | (
+        (step_norm < 1e-12) & (feas_n < ctx.tol_feas)
+    )
+    # freeze finished lanes: the loop runs until ALL lanes finish, and
+    # extra iterations must not move a lane that already satisfied its
+    # KKT tolerances (or spent its budget)
+    frozen = done | (it >= cfg.max_iter)
+    f2 = frozen[..., None, None]
+    return SQPIterate(
+        W=torch.where(f2, W, W_new),
+        y_dyn=torch.where(f2, y_dyn, sol.y_dyn),
+        y_gen=torch.where(f2, y_gen, sol.y_gen),
+        y_box=torch.where(f2, y_box, sol.y_box),
+        stat=torch.where(frozen, s.stat, stat_n),
+        feas=torch.where(frozen, s.feas, feas_n),
+        it=torch.where(frozen, it, it + 1),
+        qp_tot=torch.where(frozen, s.qp_tot, s.qp_tot + sol.iters),
+        done=torch.where(frozen, done, converged),
+        nu=torch.where(frozen, nu, nu_new),
+    )
+
+
+def _count_work(ctx: SQPContext, it: torch.Tensor, trips: int) -> None:
+    """A solve's lock-step iterations (the one-shot and ``trips`` loop
+    trips), its useful lane iterations (the per-lane ``it``, kept by
+    reference) and the slots lock step gave the lanes."""
+    lockstep = int(ctx.one_shot) + trips
+    count("sqp.lockstep_iters", lockstep)
     count("sqp.lane_iters", it)
-    count("sqp.lane_slots", math.prod(lead) * (int(one_shot) + trips))
+    count("sqp.lane_slots", math.prod(ctx.lead) * lockstep)
+
+
+def sqp_finish(ctx: SQPContext, s: SQPIterate) -> SQPResult:
+    """The status of every lane and the ``SQPResult``."""
+    status = torch.where(
+        s.done,
+        torch.full_like(s.it, int(SolverStatus.CONVERGED)),
+        torch.full_like(s.it, int(SolverStatus.EARLY_TERMINATED)),
+    )
     return SQPResult(
-        traj=ocp.unpack(W), W=W, y_dyn=y_dyn, y_gen=y_gen, y_box=y_box,
-        iterations=it, objective=ocp.objective_from_W(W),
-        stat_res=stat, feas_res=feas, status=status, qp_iters=qp_tot,
+        traj=ctx.ocp.unpack(s.W), W=s.W, y_dyn=s.y_dyn, y_gen=s.y_gen, y_box=s.y_box,
+        iterations=s.it, objective=ctx.ocp.objective_from_W(s.W),
+        stat_res=s.stat, feas_res=s.feas, status=status, qp_iters=s.qp_tot,
     )

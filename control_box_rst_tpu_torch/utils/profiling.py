@@ -248,6 +248,12 @@ def span(name: str) -> _Span:
     return s
 
 
+def recording() -> bool:
+    """True while a profiler session records (what ``span`` and ``count``
+    test)."""
+    return _autograd_profiler._is_profiler_enabled
+
+
 def count(name: str, n=1) -> None:
     """Add ``n`` to the counter ``name`` while a profiler session records.
     A tensor ``n`` is kept by reference and summed when the record is read

@@ -27,7 +27,8 @@ SPAN_READERS = {
     "di_h50.sweep": ["entry_host_ms.solves", "transcription_host_ms.solves",
                      "sqp_host_ms.solves", "stage_qp_host_ms.solves",
                      "sqp_lane_iter_pct.solves", "host_wait_pct.solves"],
-    "di_h50.rollouts": ["host_wait_pct.rollouts", "controller_host_ms.rollouts"],
+    "di_h50.rollouts": ["host_wait_pct.rollouts", "controller_host_ms.rollouts",
+                        "step_replay_pct.rollouts"],
 }
 SPAN_READERS["vdp_ms_h20.sweep"] = SPAN_READERS["di_h50.sweep"]
 # the device-trace readers on the CPU: an idle device, no K1 launch counted
@@ -62,6 +63,22 @@ def test_without_the_ports_record_the_readers_return_nothing(monkeypatch):
                     k1_shapes=[], traced_units=1, traced_steps=1, traced_k1_launches=0,
                     units=1, k1_launches=0)
     names = {n for names in SPAN_READERS.values() for n in names}
-    assert len(names) == 8
+    assert len(names) == 9
     for name in sorted(names):
         assert spec.reader(name)(record) is None, name
+
+
+@pytest.mark.parametrize("graphed, share", [(False, 0.0), (True, 100.0)])
+def test_step_replay_pct_reads_the_share_of_replayed_steps(graphed, share, monkeypatch):
+    """The traced rollouts cell on the CPU steps eagerly: 0 %. With the step
+    graphs engaged (on the CPU their two parts run as plain calls) every
+    traced step is a replayed one: 100 %, and the run stays correct."""
+    monkeypatch.setattr(sharded_solve, "resolve_qp_backend", fused)
+    monkeypatch.setattr(predictive, "resolve_qp_backend", fused)
+    monkeypatch.setattr(sharded_solve, "graph_engages", lambda *args: graphed)
+    result, _ = run.run_cell("di_h50.rollouts", 2**31 + 13, 0.0, True, device="cpu",
+                             traffic_overrides=SMALL["di_h50.rollouts"],
+                             setup_clock=lambda: 0.0)
+    assert result["correct"]
+    assert result["metrics"]["step_replay_pct.rollouts"]["value"] == share
+    assert math.isfinite(result["metrics"]["controller_host_ms.rollouts"]["value"])
